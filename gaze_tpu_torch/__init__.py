@@ -1,0 +1,33 @@
+"""gaze_tpu_torch — the PyTorch/CUDA port of the gaze pipeline.
+
+The per-frame parity path of ``gaze_tpu`` (TV-L1 flow -> two-stream SP
+-> onset-gated AT LSTM -> LF head -> argmax gaze) on an NVIDIA H100:
+
+- ``core``    — configuration dataclasses and device resolution;
+- ``ops``     — preprocessing, image primitives, warp, TV-L1;
+- ``ops.cuda``— the hand-written Hopper kernels (built from ``csrc/``
+                with nvcc at first use, bound with ctypes);
+- ``models``  — SP, AT, LF modules, the weight bridge, the pipeline.
+
+Importing the package builds nothing and touches no device; entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy top-level API (``import gaze_tpu_torch`` stays cheap)."""
+    if name in ("GazePipeline", "StreamState", "run_clip"):
+        from gaze_tpu_torch.models import pipeline
+
+        return getattr(pipeline, name)
+    if name in ("PipelineConfig", "parity_config"):
+        from gaze_tpu_torch.core import config
+
+        return getattr(config, name)
+    if name == "tvl1_flow":
+        from gaze_tpu_torch.ops.tvl1 import tvl1_flow
+
+        return tvl1_flow
+    raise AttributeError(name)

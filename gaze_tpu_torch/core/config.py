@@ -1,0 +1,123 @@
+"""Configuration dataclasses of the port's inference path.
+
+The port's own copy of the ``gaze_tpu`` config classes it needs
+(``gaze_tpu/core/config.py``): same class names, field names and
+defaults, so a config written for one package reads the same in the
+other. ``tests/test_torch_isolation.py`` holds the two copies equal
+field by field.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageConfig:
+    """Input geometry + normalization."""
+
+    height: int = 224
+    width: int = 224
+    # ImageNet mean/std, RGB order.
+    mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
+    std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+    # Ground-truth heatmap Gaussian sigma in pixels at 224x224.
+    heatmap_sigma: float = 32.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TVL1Config:
+    """Pyramidal TV-L1 optical flow (Sanchez et al., IPOL 2013) with
+    fixed level/warp/iteration counts."""
+
+    pyramid_levels: int = 5
+    pyramid_factor: float = 0.5      # downscale per level
+    tau: float = 0.25                # dual ascent time step
+    lambda_: float = 0.15            # data-term weight
+    theta: float = 0.3               # tightness
+    warps: int = 5                   # image warps per level
+    iters: int = 10                  # primal-dual iterations per warp
+    quant_bound: float = 15.0        # 8-bit flow image clip, pixels
+    presmooth_sigma: float = 0.8     # Gaussian presmoothing of the pyramid
+    median_filter: bool = True       # 3x3 median on the flow between warps
+    median_kernel: int = 3           # 3 = one pass, 5 = two chained passes
+    # Run the warp (kernel K1) and the primal-dual loop (kernel K2)
+    # through the hand-written CUDA kernels for CUDA tensors. False runs
+    # the plain PyTorch versions on any device — the reference the
+    # kernels are held against on the card. CPU tensors always take the
+    # plain versions.
+    use_pallas_warp: bool = True
+    use_pallas_pd: bool = True
+    # Solve the flow at this fraction of the model grid. The port supports
+    # 1.0 (the parity path) only so far.
+    flow_scale: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SPConfig:
+    """Two-stream saliency-prediction network: VGG16 over RGB and over
+    the flow image, 1x1 fusion at conv5_3, ConvTranspose+BN decoder."""
+
+    flow_channels: int = 2
+    fused_channels: int = 512
+    decoder_channels: Tuple[int, ...] = (512, 256, 128, 64)
+    use_batchnorm: bool = True
+    # Channel widths of the VGG stages (a max-pool follows every stage but
+    # the last). Narrow variants keep the 2,2,3,3,3 layout so layer names
+    # conv{s}_{i} are unchanged; the conv5 width must equal
+    # ATConfig.feature_dim.
+    stages: Tuple[Tuple[int, ...], ...] = (
+        (64, 64),
+        (128, 128),
+        (256, 256, 256),
+        (512, 512, 512),
+        (512, 512, 512),
+    )
+    # Training-time rematerialization; inference ignores it.
+    remat: str = "none"
+
+
+@dataclasses.dataclass(frozen=True)
+class ATConfig:
+    """Attention-transition LSTM over conv5 channel-weight vectors."""
+
+    feature_dim: int = 512
+    hidden_size: int = 512
+    num_layers: int = 1
+    # ROI width in feature cells for fixation pooling.
+    roi_size: int = 3
+    # conv5 stride relative to input pixels (224/14).
+    feature_stride: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class LFConfig:
+    """Late-fusion conv head: concat(SP map, AT map) -> 3x3 convs ->
+    1-channel sigmoid heatmap."""
+
+    channels: Tuple[int, ...] = (32, 32, 8)
+    # "zero" (parity) or "edge" (replicate) padding of the 3x3 convs.
+    padding: str = "zero"
+    # Logit-space residual correction of the SP saliency channel.
+    residual: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Config tree of the SP -> AT -> LF inference path."""
+
+    image: ImageConfig = dataclasses.field(default_factory=ImageConfig)
+    tvl1: TVL1Config = dataclasses.field(default_factory=TVL1Config)
+    sp: SPConfig = dataclasses.field(default_factory=SPConfig)
+    at: ATConfig = dataclasses.field(default_factory=ATConfig)
+    lf: LFConfig = dataclasses.field(default_factory=LFConfig)
+
+
+def parity_config() -> PipelineConfig:
+    """The exact-math path for reference comparison: full-grid flow,
+    float32 activations (GazePipeline's default dtype)."""
+    base = PipelineConfig()
+    return dataclasses.replace(
+        base, tvl1=dataclasses.replace(base.tvl1, flow_scale=1.0)
+    )

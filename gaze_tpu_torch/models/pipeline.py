@@ -1,0 +1,240 @@
+"""The per-frame gaze step: flow -> SP -> AT -> LF -> argmax, on the card.
+
+Counterpart of ``gaze_tpu/models/pipeline.py`` (``GazePipeline.step``
+and ``make_clip_fn``) on the parity path: float32, flow solved at the
+model grid, the ConvTranspose decoder, no int8. Per frame:
+
+    uint8 frame pair -> resize, normalize, BT.601 gray
+    -> TV-L1 flow (kernels K1, K2) -> 8-bit-clipped temporal input
+    -> SP two streams -> saliency S_t, conv5 F_t
+    -> pool F_t at argmax(S_t) -> LSTM step, kept only at a fixation onset
+    -> attention map from the predicted channel weights
+    -> LF(S_t, A_t) -> heatmap -> argmax gaze
+
+The weights live in the modules (``sp``, ``lstm``, ``lf``); the JAX
+package's ``variables`` load through ``models/weights.py``. Options of
+the JAX pipeline that this port does not have yet raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Tuple
+
+import torch
+
+from gaze_tpu_torch.core.config import PipelineConfig
+from gaze_tpu_torch.core.device import resolve_device, set_parity_precision
+from gaze_tpu_torch.models.at import LSTMNet, attention_map, fixation_pool
+from gaze_tpu_torch.models.lf import LateFusion
+from gaze_tpu_torch.models.sp import SPNet
+from gaze_tpu_torch.models.weights import StateDict, init_weights, load_state
+from gaze_tpu_torch.ops.heatmap import heatmap_argmax
+from gaze_tpu_torch.ops.preprocess import (
+    normalize_rgb,
+    prepare_temporal_input,
+    resize_frames,
+    rgb_to_gray,
+    to_float,
+)
+from gaze_tpu_torch.ops.tvl1 import tvl1_flow
+
+
+class StreamState(NamedTuple):
+    """Per-stream recurrent state carried across frames."""
+
+    carries: List[Tuple[torch.Tensor, torch.Tensor]]  # LSTM (c, h) per layer
+    w_hat: torch.Tensor      # (B, C) last predicted channel weights
+    prev_fix: torch.Tensor   # (B,) previous frame's fixation bit
+    prev_gaze: torch.Tensor  # (B, 2) previous frame's predicted gaze
+
+
+class GazePipeline:
+    """SP, AT and LF modules plus config, on one device.
+
+    Args:
+      config: the pipeline config (``parity_config()`` for the parity
+        path).
+      dtype: activation type; float32 only so far.
+      device: ``None`` means ``cuda`` and raises when CUDA is absent;
+        ``"cpu"`` runs every op, kernels included, as plain PyTorch.
+      seed: seed of the ``torch.Generator`` the weights are drawn from
+        (``models/weights.py:init_weights``); replace them with
+        :meth:`load_state_dicts`.
+      at_pool, decoder_impl, quant_sp: the JAX pipeline's options;
+        only their parity values are ported.
+    """
+
+    def __init__(
+        self,
+        config: PipelineConfig,
+        dtype: torch.dtype = torch.float32,
+        device=None,
+        seed: int = 0,
+        at_pool: str = "sp_argmax",
+        decoder_impl: str = "deconv",
+        quant_sp=None,
+    ):
+        if at_pool not in ("sp_argmax", "prediction"):
+            raise ValueError(f"unknown at_pool {at_pool!r}")
+        if decoder_impl not in ("deconv", "pixelshuffle", "halfres"):
+            raise ValueError(f"unknown decoder_impl {decoder_impl!r}")
+        unported = {
+            "dtype": dtype != torch.float32,
+            "at_pool": at_pool != "sp_argmax",
+            "decoder_impl": decoder_impl != "deconv",
+            "quant_sp": quant_sp is not None,
+            "tvl1.flow_scale": config.tvl1.flow_scale != 1.0,
+        }
+        for name, bad in unported.items():
+            if bad:
+                raise NotImplementedError(f"{name}: only the parity value is ported")
+        self.config = config
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            set_parity_precision()
+        gen = torch.Generator().manual_seed(seed)
+        self.sp = SPNet(config.sp)
+        self.lstm = LSTMNet(config.at)
+        self.lf = LateFusion(config.lf)
+        for m in self.modules().values():
+            init_weights(m, gen)
+            m.to(self.device).eval()
+
+    # ------------------------------------------------------- weights ----
+    def modules(self) -> Dict[str, torch.nn.Module]:
+        return {"sp": self.sp, "at": self.lstm, "lf": self.lf}
+
+    def load_state_dicts(self, bundle: Dict[str, StateDict]) -> None:
+        """Load ``{"sp", "at", "lf"}`` state dicts: the weight bridge's
+        output, an ``export_pipeline_to_torch`` file, or another
+        pipeline's :meth:`state_dicts`."""
+        for name, m in self.modules().items():
+            load_state(m, bundle[name])
+
+    def state_dicts(self) -> Dict[str, StateDict]:
+        return {name: m.state_dict() for name, m in self.modules().items()}
+
+    # ---------------------------------------------------------- state ----
+    def init_state(self, batch: int) -> StreamState:
+        cfg = self.config
+        center = torch.tensor(
+            [(cfg.image.width - 1) / 2.0, (cfg.image.height - 1) / 2.0],
+            dtype=torch.float32, device=self.device,
+        )
+        return StreamState(
+            carries=self.lstm.init_carry(batch, self.device),
+            w_hat=torch.ones((batch, cfg.at.feature_dim), device=self.device),
+            prev_fix=torch.zeros((batch,), device=self.device),
+            prev_gaze=center.expand(batch, 2).clone(),
+        )
+
+    # ------------------------------------------------------- preproc ----
+    def preprocess_pair(
+        self, prev_u8: torch.Tensor, cur_u8: torch.Tensor, flow_img=None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """uint8 (B, H, W, 3) frame pair -> (normalized rgb, normalized
+        flow input), both NHWC at the model grid. The frames are resized
+        before the TV-L1 solve, so the flow grid is the model grid."""
+        if flow_img is not None:
+            raise NotImplementedError("flow_img: the flow-image input is not ported")
+        cfg = self.config
+        cur = resize_frames(to_float(cur_u8), cfg.image.height, cfg.image.width)
+        prev = resize_frames(to_float(prev_u8), cfg.image.height, cfg.image.width)
+        flow = tvl1_flow(rgb_to_gray(prev), rgb_to_gray(cur), cfg.tvl1, device=self.device)
+        flow_in = prepare_temporal_input(flow, cfg.tvl1.quant_bound)
+        return normalize_rgb(cur, cfg.image), flow_in
+
+    def sp_forward(
+        self, rgb_in: torch.Tensor, flow_in: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(saliency (B, H, W), spatial conv5 (B, h, w, C))."""
+        return self.sp(rgb_in, flow_in)
+
+    # ---------------------------------------------------------- step ----
+    def attend(
+        self,
+        state: StreamState,
+        sal: torch.Tensor,
+        feat: torch.Tensor,
+        fixation: torch.Tensor,
+        gaze_xy: torch.Tensor | None = None,
+    ) -> Tuple[StreamState, Dict[str, torch.Tensor]]:
+        """The AT + LF part of :meth:`step`, from SP's outputs on."""
+        cfg = self.config
+        pool_pt = heatmap_argmax(sal) if gaze_xy is None else gaze_xy
+        w = fixation_pool(feat, pool_pt, cfg.at)
+        new_carries, w_pred = self.lstm.step(state.carries, w)
+        # The AT LSTM steps once per fixation ONSET, not on every frame
+        # of a fixation; prev_fix takes the current bit either way.
+        onset = fixation * (1.0 - state.prev_fix)
+        m = onset.reshape(-1, 1) != 0
+        carries = [
+            (torch.where(m, nc, oc), torch.where(m, nh, oh))
+            for (nc, nh), (oc, oh) in zip(new_carries, state.carries)
+        ]
+        w_hat = torch.where(m, w_pred, state.w_hat)
+        amap = attention_map(feat, w_hat, (cfg.image.height, cfg.image.width))
+        final = self.lf(torch.stack([sal, amap], dim=-1))
+        gaze = heatmap_argmax(final)
+        out = {"saliency": sal, "attention": amap, "heatmap": final, "gaze": gaze}
+        return StreamState(carries, w_hat, fixation, gaze), out
+
+    @torch.inference_mode()
+    def step(
+        self,
+        state: StreamState,
+        prev_u8,
+        cur_u8,
+        fixation,
+        gaze_xy=None,
+        flow_img=None,
+    ) -> Tuple[StreamState, Dict[str, torch.Tensor]]:
+        """One per-frame step over B independent streams.
+
+        Args:
+          state: recurrent StreamState.
+          prev_u8, cur_u8: (B, H, W, 3) uint8 frames (moved to the device).
+          fixation: (B,) 1.0 where frame t is a fixation.
+          gaze_xy: optional (B, 2) teacher gaze to pool at instead of the
+            saliency argmax.
+          flow_img: not ported; raises.
+
+        Returns:
+          (new_state, outputs): saliency, attention and final heatmaps
+          (B, H, W) and the decoded gaze (B, 2).
+        """
+        dev = self.device
+        fixation = torch.as_tensor(fixation, dtype=torch.float32, device=dev)
+        if gaze_xy is not None:
+            gaze_xy = torch.as_tensor(gaze_xy, dtype=torch.float32, device=dev)
+        rgb_in, flow_in = self.preprocess_pair(
+            torch.as_tensor(prev_u8, device=dev), torch.as_tensor(cur_u8, device=dev), flow_img
+        )
+        sal, feat = self.sp_forward(rgb_in, flow_in)
+        return self.attend(state, sal, feat, fixation, gaze_xy)
+
+
+@torch.inference_mode()
+def run_clip(
+    pipeline: GazePipeline, frames_u8, fixsac
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T+1, H, W, 3) uint8 frames, (B, T+1) fixation bits ->
+    (heatmaps (B, T, H, W), gaze (B, T, 2)) on the pipeline's device.
+
+    The counterpart of ``make_clip_fn``: B streams advance in lockstep
+    from a fresh state; step t consumes frames t and t+1 and the
+    fixation bit of frame t+1. The frames move to the device once and
+    every intermediate stays there.
+    """
+    dev = pipeline.device
+    frames = torch.as_tensor(frames_u8, device=dev)
+    fix = torch.as_tensor(fixsac, dtype=torch.float32, device=dev)
+    state = pipeline.init_state(frames.shape[0])
+    heatmaps, gaze = [], []
+    for t in range(frames.shape[1] - 1):
+        state, out = pipeline.step(state, frames[:, t], frames[:, t + 1], fix[:, t + 1])
+        heatmaps.append(out["heatmap"])
+        gaze.append(out["gaze"])
+    return torch.stack(heatmaps, dim=1), torch.stack(gaze, dim=1)

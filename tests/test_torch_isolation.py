@@ -1,0 +1,189 @@
+"""The port stands alone and never hides the device or its kernels.
+
+- No module of gaze_tpu_torch, and not chip_smoke.py, imports jax, flax,
+  optax or gaze_tpu; a fresh interpreter that runs a CPU step has none
+  of them loaded.
+- Entry points default to CUDA and raise without it.
+- On CPU tensors the kernel wrappers take their plain versions and the
+  launch counters stay at 0; bad inputs are refused.
+- The port's config copy has the JAX dataclasses' defaults, field by
+  field.
+"""
+
+import ast
+import dataclasses
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from gaze_tpu.core import config as jconfig
+from gaze_tpu_torch.core import config as tconfig
+from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
+from gaze_tpu_torch.ops import cuda
+from gaze_tpu_torch.ops.cuda.tvl1_pd import pd_iterations, pd_iterations_plain
+from gaze_tpu_torch.ops.cuda.warp import warp3
+from gaze_tpu_torch.ops.tvl1 import tvl1_flow
+from gaze_tpu_torch.ops.warp import warp3_plain
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gaze_tpu")
+
+
+def port_sources():
+    return sorted((ROOT / "gaze_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    sources = port_sources()
+    assert len(sources) > 10 and all(p.exists() for p in sources)
+    bad = {str(p.relative_to(ROOT)): sorted(imported_roots(p) & set(FORBIDDEN))
+           for p in sources}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_fresh_interpreter_runs_a_cpu_step_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import gaze_tpu_torch
+        from gaze_tpu_torch.core.config import (
+            ATConfig, ImageConfig, LFConfig, PipelineConfig, SPConfig, TVL1Config)
+        cfg = PipelineConfig(
+            image=ImageConfig(height=32, width=32),
+            tvl1=TVL1Config(pyramid_levels=2, warps=1, iters=2),
+            sp=SPConfig(stages=((4, 4), (4, 4), (4, 4, 4), (8, 8, 8), (8, 8, 8)),
+                        fused_channels=8, decoder_channels=(8, 4, 4, 4)),
+            at=ATConfig(feature_dim=8, hidden_size=8, roi_size=1),
+            lf=LFConfig(channels=(4,)),
+        )
+        pipe = gaze_tpu_torch.GazePipeline(cfg, device="cpu")
+        frames = np.random.default_rng(0).integers(0, 256, (1, 3, 32, 32, 3), np.uint8)
+        hm, gaze = gaze_tpu_torch.run_clip(pipe, frames, np.ones((1, 3), np.float32))
+        assert hm.shape == (1, 2, 32, 32) and gaze.shape == (1, 2, 2)
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "gaze_tpu"))
+        print("LOADED", loaded)
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "LOADED []" in r.stdout, r.stdout
+
+
+def tiny_config():
+    return tconfig.PipelineConfig(
+        image=tconfig.ImageConfig(height=32, width=32),
+        sp=tconfig.SPConfig(stages=((4, 4), (4, 4), (4, 4, 4), (8, 8, 8), (8, 8, 8)),
+                            fused_channels=8, decoder_channels=(8, 4, 4, 4)),
+        at=tconfig.ATConfig(feature_dim=8, hidden_size=8, roi_size=1),
+    )
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GazePipeline(tiny_config())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GazePipeline(tiny_config(), device="cuda")
+    z = torch.zeros(1, 20, 20)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tvl1_flow(z, z)
+    pipe = GazePipeline(tiny_config(), device="cpu")
+    assert pipe.device.type == "cpu"
+    frames = np.zeros((1, 2, 32, 32, 3), np.uint8)
+    hm, _ = run_clip(pipe, frames, np.ones((1, 2), np.float32))
+    assert hm.device.type == "cpu"
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(dtype=torch.bfloat16),
+    dict(at_pool="prediction"),
+    dict(decoder_impl="pixelshuffle"),
+    dict(decoder_impl="halfres"),
+    dict(quant_sp=object()),
+    dict(config_flow_scale=0.5),
+])
+def test_unported_options_raise(kwargs):
+    cfg = tiny_config()
+    if kwargs.pop("config_flow_scale", None):
+        cfg = dataclasses.replace(cfg, tvl1=dataclasses.replace(cfg.tvl1, flow_scale=0.5))
+    with pytest.raises(NotImplementedError):
+        GazePipeline(cfg, device="cpu", **kwargs)
+
+
+def test_unknown_options_and_flow_img_raise():
+    with pytest.raises(ValueError):
+        GazePipeline(tiny_config(), device="cpu", at_pool="nearest")
+    pipe = GazePipeline(tiny_config(), device="cpu")
+    f = np.zeros((1, 32, 32, 3), np.uint8)
+    with pytest.raises(NotImplementedError):
+        pipe.step(pipe.init_state(1), f, f, np.ones(1), flow_img=np.zeros((1, 32, 32, 2)))
+
+
+def fields(n, shape=(2, 18, 22), seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.uniform(-2, 2, shape).astype(np.float32)) for _ in range(n)]
+
+
+def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
+    cuda.reset_launch_counts()
+    f = fields(6)
+    for a, b in zip(warp3(*f), warp3_plain(*f)):
+        assert torch.equal(a, b)
+    g = fields(10, seed=1)
+    kw = dict(iters=3, tau=0.25, lambda_=0.15, theta=0.3)
+    for a, b in zip(pd_iterations(*g, **kw), pd_iterations_plain(*g, **kw)):
+        assert torch.equal(a, b)
+    assert {k: v.launches for k, v in cuda.kernels().items()} == {"warp3": 0, "tvl1_pd": 0}
+
+
+@pytest.mark.parametrize("bad", ["float64", "noncontiguous", "shape", "narrow"])
+def test_wrappers_refuse_bad_inputs(bad):
+    f = fields(6)
+    if bad == "float64":
+        f[2] = f[2].double()
+    elif bad == "noncontiguous":
+        f[1] = torch.zeros(2, 22, 18).transpose(1, 2)  # (2, 18, 22), strided
+    elif bad == "shape":
+        f[4] = f[4][:, :-1]
+    else:
+        f = fields(6, shape=(2, 1, 22))
+    with pytest.raises((TypeError, ValueError)):
+        warp3(*f)
+
+
+@pytest.mark.parametrize("name", ["ImageConfig", "TVL1Config", "SPConfig", "ATConfig",
+                                  "LFConfig", "PipelineConfig"])
+def test_config_copy_matches_the_jax_defaults(name):
+    ours, theirs = getattr(tconfig, name)(), getattr(jconfig, name)()
+    ours_fields = {f.name for f in dataclasses.fields(ours)}
+    theirs_fields = {f.name for f in dataclasses.fields(theirs)}
+    if name == "PipelineConfig":
+        # the port's tree holds the inference sections only
+        assert ours_fields == {"image", "tvl1", "sp", "at", "lf"} <= theirs_fields
+    else:
+        assert ours_fields == theirs_fields
+    for k in ours_fields:
+        a, b = getattr(ours, k), getattr(theirs, k)
+        if dataclasses.is_dataclass(a):
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), k
+        else:
+            assert a == b, k
+    if name == "PipelineConfig":
+        p, q = tconfig.parity_config(), jconfig.parity_config()
+        assert p.tvl1 == tconfig.TVL1Config(**dataclasses.asdict(q.tvl1))
