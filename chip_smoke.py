@@ -6,15 +6,24 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from gaze_tpu_torch/csrc with nvcc,
-holds each kernel against its plain PyTorch version on the card, checks
-that TV-L1 recovers a known translation, drives the parity-preset gaze
-path at full width (224², two VGG16 streams, 512-wide LSTM, LF head,
-TV-L1 4 levels x 5 warps x 10 iterations) through ``run_clip`` for B=8
-streams x T=8 frames, checks that the path went through the kernels, and
-compares a short CPU run of the same clip and weights. Every phase prints
-one JSON line; any failed check exits non-zero before the last line,
-which is ``{"ok": true, "device": {...}}``. All inputs come from numpy
-seeds and all weights from a ``torch.Generator`` seed.
+holds each kernel against its plain PyTorch version on the card (K1 warp,
+K2 primal-dual, K3 int8 conv at every layer shape of the turbo path),
+checks that TV-L1 recovers a known translation, and drives two presets
+at full width (224², two VGG16 streams, 512-wide LSTM, LF 32-32-8)
+through ``run_clip`` for B=8 streams x T=8 frames:
+
+- parity: float32, TV-L1 at 224² (4 levels x 5 warps x 10 iterations);
+- turbo: bfloat16, TV-L1 at 112² (3 levels x 3 warps x 5 iterations),
+  both VGG streams int8 (K3) after a calibration on 4 frame pairs of the
+  clip at the 99.9th percentile with the bf16 stem.
+
+Each path runs with the launch counters set to 0 just before it and read
+just after, and must have launched each of its kernels as often as its
+configuration says. A short CPU run of each clip with the same weights is
+compared with the card's. Every phase prints one JSON line; any failed
+check exits non-zero before the last line, which is
+``{"ok": true, "device": {...}}``. All inputs come from numpy seeds and
+all weights from a ``torch.Generator`` seed.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
+INT8_OPS = 1979e12          # H100 SXM dense int8 tensor-core operations
 K1_FLOPS_PER_PIXEL = 43     # coordinates, weights, 3 x 4 taps, epilogue
 K2_FLOPS_PER_PIXEL_ITER = 54
 K1_TOL = 1e-4               # relative to max(1, |plain|): fields, grad, rho_c
@@ -44,7 +54,20 @@ CPU_HEATMAP_TOL = 1e-3      # card vs CPU, heatmaps in [0, 1]
 # tie on the CPU heatmap: within max(NEAR_TIE, 2 x the measured heatmap
 # difference) of the CPU maximum.
 NEAR_TIE = 1e-5
+# Card vs CPU on the turbo clip, heatmaps in [0, 1]. Both run bf16
+# activations, rounded at other places by cuDNN and the CPU's kernels (a
+# bf16 step is 2^-8 relative), and a bf16 input that lands on the other
+# side of a rounding boundary flips an int8 code downstream.
+CPU_TURBO_TOL = 5e-2
 B, T, SIZE = 8, 8, 224
+# The int8 layers of one VGG16 stream at 224² (the bf16 stem conv1_1 is a
+# cuDNN float32 conv): (name, grid, Ci, Co); conv5_3 dequantizes.
+TURBO_INT8_LAYERS = (
+    ("conv1_2", 224, 64, 64), ("conv2_1", 112, 64, 128), ("conv2_2", 112, 128, 128),
+    ("conv3_1", 56, 128, 256), ("conv3_2", 56, 256, 256), ("conv3_3", 56, 256, 256),
+    ("conv4_1", 28, 256, 512), ("conv4_2", 28, 512, 512), ("conv4_3", 28, 512, 512),
+    ("conv5_1", 14, 512, 512), ("conv5_2", 14, 512, 512), ("conv5_3", 14, 512, 512),
+)
 
 
 def fail(msg: str) -> None:
@@ -135,6 +158,215 @@ def textures(rng, n: int, H: int, W: int, waves: int = 8):
         return (0.5 + 0.4 * out / waves).astype(np.float32)
 
     return at
+
+
+def gaze_vs_cpu(hm_g, gaze_g, hm_c, gaze_c):
+    """(near-tie frames, mismatched frames, tie threshold) of stream 0:
+    the card's gaze may differ from the CPU run's only where its pick is
+    within max(NEAR_TIE, 2 x the heatmap difference) of the CPU maximum."""
+    tie = max(NEAR_TIE, 2 * float((hm_g - hm_c).abs().max()))
+    near_ties, mismatched = [], []
+    for tt in range(gaze_g.shape[1]):
+        if not gaze_g[0, tt].equal(gaze_c[0, tt]):
+            gx, gy = (int(v) for v in gaze_g[0, tt])
+            gap = float(hm_c[0, tt].max() - hm_c[0, tt, gy, gx])
+            (near_ties if gap < tie else mismatched).append(tt)
+    return near_ties, mismatched, tie
+
+
+def im2col_int8(torch, x, pad_code: int):
+    """(B, H, W, Ci) int8 -> (B*H*W, 9*Ci) int8, tap-major: the A operand
+    of the conv as one matrix product, for the ``torch._int_mm`` yardstick."""
+    import torch.nn.functional as F
+
+    Bn, H, W, ci = x.shape
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), value=pad_code).permute(0, 2, 3, 1)
+    cols = [xp[:, dy:dy + H, dx:dx + W] for dy in range(3) for dx in range(3)]
+    return torch.stack(cols, dim=3).reshape(Bn * H * W, 9 * ci)
+
+
+def k3_phase(torch, dev, rng):
+    """K3 against its plain version at every int8 layer shape of the turbo
+    path (B=8) and a ragged shape, with both epilogues. Returns the
+    summary row of one turbo step (24 launches: 12 layers x 2 streams)."""
+    import torch.nn.functional as F
+
+    from gaze_tpu_torch.ops.conv_int8 import ConvTap, conv3x3_int8_plain, int8_conv_acc
+    from gaze_tpu_torch.ops.cuda.conv_int8 import conv3x3_int8, pad_channels
+
+    # (layer, B, H, W, Ci, Co, dequant, pad code); the int8 stem (off the
+    # turbo path, whose stem is bf16) pads its Ci = 3 to 32 in the wrapper
+    cases = [(name, B, g, g, ci, co, name == "conv5_3", -128)
+             for name, g, ci, co in TURBO_INT8_LAYERS]
+    cases += [("ragged", 3, 13, 20, 64, 96, False, -128), ("ragged", 3, 13, 20, 64, 96, True, -128),
+              ("conv1_1_int8_stem", B, SIZE, SIZE, 3, 64, False, 0)]
+    step_layers = {lay[0] for lay in TURBO_INT8_LAYERS}
+    step = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                ops_ms=0.0, bytes_ms=0.0)
+    k3_err = 0.0
+    for name, n, H, W, ci, co, dequant, pad_code in cases:
+        x = torch.from_numpy(rng.integers(-128, 128, (n, H, W, ci), dtype=np.int8)).to(dev)
+        w = torch.from_numpy(rng.integers(-127, 128, (co, 3, 3, ci), dtype=np.int8)).to(dev)
+        if dequant:   # conv5_3: c = 128 * col_sum, a = sx * w_scale
+            c = 128.0 * w.float().sum(dim=(1, 2, 3))
+            a = torch.from_numpy(rng.uniform(1e-6, 1e-5, co).astype(np.float32)).to(dev)
+            bias = torch.from_numpy(rng.normal(0, 1, co).astype(np.float32)).to(dev)
+        else:         # the requant scale and offset ranges of tests/test_pallas_conv_int8.py
+            a = torch.from_numpy((rng.normal(0, 2e-3, co) ** 2 + 1e-4).astype(np.float32)).to(dev)
+            c = torch.from_numpy(rng.normal(-20, 40, co).astype(np.float32)).to(dev)
+            bias = None
+        tap = ConvTap(w, a, c.contiguous(), bias, pad_code)
+        got = conv3x3_int8(x, tap)
+        ref = conv3x3_int8_plain(x, tap)
+        torch.cuda.synchronize()
+        if got.dtype != ref.dtype or not torch.equal(got, ref):
+            fail(f"K3 {name} {(n, H, W, ci, co)} dequant={dequant}: "
+                 f"{int((got != ref).sum())} of {got.numel()} outputs differ from plain")
+        err = float((got.float() - ref.float()).abs().max())
+        k3_err = max(k3_err, err)
+        # the yardstick: one int8 matrix product of the im2col matrix (its
+        # depth 9 * Ci must be a multiple of 8: the stem's padded Ci)
+        wp = pad_channels(tap).w
+        cip = wp.shape[-1]
+        cols = im2col_int8(torch, F.pad(x, (0, cip - ci)), pad_code)
+        wt = wp.reshape(co, 9 * cip).t()
+        acc = torch._int_mm(cols, wt)
+        if not torch.equal(acc.reshape(n, H, W, co), int8_conv_acc(x, w, pad_code)):
+            fail(f"K3 {name}: the _int_mm yardstick computes another accumulator")
+        big = n * H * W >= 8 * 56 * 56
+        ms = cuda_ms(torch, lambda: conv3x3_int8(x, tap), 20 if big else 100)
+        plain = cuda_ms(torch, lambda: conv3x3_int8_plain(x, tap), 3, 1)
+        lib = cuda_ms(torch, lambda: torch._int_mm(cols, wt), 20 if big else 100)
+        _, prof = device_profile(torch, lambda: [conv3x3_int8(x, tap) for _ in range(10)])
+        dev_us, dev_n = device_us(prof, "conv3x3_int8_kernel")
+        ops = 2 * n * H * W * 9 * ci * co
+        nbytes = n * H * W * ci + co * 9 * ci + n * H * W * co * (4 if dequant else 1) \
+            + 4 * co * (3 if dequant else 2)
+        ops_ms, bytes_ms = ops / INT8_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        emit("K3", layer=name, shape=[n, H, W, ci, co], epilogue="dequant" if dequant else "requant",
+             max_abs_err=err, bitwise_equal=True, kernel_ms=ms,
+             kernel_device_us=dev_us / dev_n if dev_n else None, plain_ms=plain,
+             library_ms=lib, bound_us=bound * 1e3,
+             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+             tops=ops / ms / 1e9)
+        if name in step_layers:   # each runs once per stream: twice per step
+            step["ms"] += 2 * ms
+            step["device_ms"] += 2 * (dev_us / dev_n / 1e3 if dev_n else float("nan"))
+            step["plain_ms"] += 2 * plain
+            step["library_ms"] += 2 * lib
+            step["bound_ms"] += 2 * bound
+            step["ops_ms"] += 2 * ops_ms
+            step["bytes_ms"] += 2 * bytes_ms
+        del x, w, cols, acc, got, ref
+    step["bound_by"] = "operations" if step.pop("ops_ms") >= step.pop("bytes_ms") else "bytes"
+    step["max_abs_err"] = k3_err
+    emit("K3_step", launches_per_step=2 * len(TURBO_INT8_LAYERS), **step)
+    return step
+
+
+def turbo_phase(torch, dev, cuda, frames, fixsac):
+    """The turbo preset's main path: calibration, then the B x T clip.
+    Returns its launch counts."""
+    from gaze_tpu_torch.core.config import PRESETS, preset_config
+    from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
+    from gaze_tpu_torch.models.quant import LAYERS, calibrate_pipeline_sp
+    from gaze_tpu_torch.ops.tvl1 import _pyramid_shapes
+
+    p = PRESETS["turbo"]
+    cfg = preset_config("turbo")
+    dtype = getattr(torch, p["dtype"])
+    t1 = cfg.tvl1
+    base = GazePipeline(cfg, dtype=dtype, seed=0)
+    pairs = [(frames[:, t], frames[:, t + 1]) for t in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qsp = calibrate_pipeline_sp(base, pairs, percentile=p["quant_percentile"],
+                                bf16_stem=p["quant_stem"] == "bf16")
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    pipe = GazePipeline(cfg, dtype=dtype, seed=0, quant_sp=qsp)
+    pipe.load_state_dicts(base.state_dicts())
+    del base
+    run_clip(pipe, frames[:, :2], fixsac[:, :2])   # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    heatmaps, gaze = run_clip(pipe, frames, fixsac)
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    launches = {name: k.launches for name, k in cuda.kernels().items()}
+    peak = torch.cuda.max_memory_allocated()
+    # the clip is host-bound and short (about 0.2 s): time it twice more
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run_clip(pipe, frames, fixsac)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    fh = int(round(SIZE * t1.flow_scale))
+    levels = len(_pyramid_shapes(fh, fh, t1.pyramid_levels, t1.pyramid_factor))
+    int8_layers = len(LAYERS) - (1 if p["quant_stem"] == "bf16" else 0)
+    expect = {"warp3": levels * t1.warps * T, "tvl1_pd": levels * t1.warps * t1.iters * T,
+              "conv3x3_int8": 2 * int8_layers * T}
+    if launches != expect:
+        fail(f"turbo: kernel launches {launches}, expected {expect}")
+    if tuple(heatmaps.shape) != (B, T, SIZE, SIZE) or tuple(gaze.shape) != (B, T, 2):
+        fail(f"turbo: shapes {tuple(heatmaps.shape)}, {tuple(gaze.shape)}")
+    if not bool(torch.isfinite(heatmaps).all()) or not bool(torch.isfinite(gaze).all()):
+        fail("turbo: non-finite outputs")
+    if float(heatmaps.min()) < 0 or float(heatmaps.max()) > 1:
+        fail("turbo: heatmap outside [0, 1]")
+    if float(gaze.min()) < 0 or float(gaze.max()) > SIZE - 1:
+        fail("turbo: gaze outside the image")
+
+    state = pipe.init_state(B)
+    prev = torch.from_numpy(frames[:, 0]).to(dev)
+    cur = torch.from_numpy(frames[:, 1]).to(dev)
+    fix = torch.from_numpy(fixsac[:, 1]).to(dev)
+    with torch.inference_mode():
+        rgb_in, flow_in = pipe.preprocess_pair(prev, cur)
+        sal, feat = pipe.sp_forward(rgb_in, flow_in)
+        stages = (("tvl1_preprocess", lambda: pipe.preprocess_pair(prev, cur)),
+                  ("sp_int8_streams_and_tail", lambda: pipe.sp_forward(rgb_in, flow_in)),
+                  ("at_lf", lambda: pipe.attend(state, sal, feat, fix)))
+        stage_ms = {name: cuda_ms(torch, fn, 5, 1) for name, fn in stages}
+        stage_device_ms = {name: busy_ms(device_profile(torch, fn)[1]) for name, fn in stages}
+    _, prof = device_profile(torch, lambda: run_clip(pipe, frames[:, :3], fixsac[:, :3]))
+    step_busy_ms = busy_ms(prof) / 2
+    step_wall_ms = wall * 1e3 / T
+    k3_dev_us, k3_n = device_us(prof, "conv3x3_int8_kernel")
+    top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:10]
+    top_kernels = [{"name": k[:90], "ms_per_step": v[0] / 2e3, "launches_per_step": v[1] / 2}
+                   for k, v in top]
+
+    # the same clip, B=1 x T=2, on the CPU with the same weights and QuantSP
+    cpu = GazePipeline(cfg, dtype=dtype, device="cpu", quant_sp=qsp)
+    cpu.load_state_dicts(pipe.state_dicts())
+    t0 = time.perf_counter()
+    hm_c, gaze_c = run_clip(cpu, frames[:1, :3], fixsac[:1, :3])
+    t_cpu = time.perf_counter() - t0
+    hm_g, gaze_g = heatmaps[:1, :2].cpu(), gaze[:1, :2].cpu()
+    hm_diff = float((hm_g - hm_c).abs().max())
+    near_ties, mismatched, tie = gaze_vs_cpu(hm_g, gaze_g, hm_c, gaze_c)
+    emit("turbo", batch=B, frames=T, size=SIZE, flow_grid=fh, tvl1_levels=levels,
+         tvl1_warps=t1.warps, tvl1_iters=t1.iters, dtype=p["dtype"],
+         calibration_pairs=len(pairs), calibration_s=calib_s,
+         frames_per_s=B * T / wall, frames_per_s_runs=[B * T / w for w in walls], wall_s=wall,
+         stage_ms=stage_ms, stage_device_ms=stage_device_ms, step_wall_ms=step_wall_ms,
+         step_device_busy_ms=step_busy_ms, device_idle_share=1 - step_busy_ms / step_wall_ms,
+         k3_device_ms_per_step=k3_dev_us / 2e3, k3_launches_per_step=k3_n / 2,
+         top_kernels=top_kernels, peak_mem_bytes=peak, launches=launches,
+         cpu_frames=2, cpu_s=t_cpu, cpu_heatmap_max_diff=hm_diff, cpu_heatmap_tol=CPU_TURBO_TOL,
+         cpu_gaze_max_diff=float((gaze_g - gaze_c).abs().max()),
+         cpu_near_tie_frames=near_ties, cpu_near_tie_threshold=tie,
+         gaze_first_stream=gaze[0].tolist())
+    if mismatched:
+        fail(f"turbo: gaze differs from the CPU run at frames {mismatched}")
+    if not hm_diff <= CPU_TURBO_TOL:
+        fail(f"turbo: heatmaps differ from the CPU run by {hm_diff} > {CPU_TURBO_TOL}")
+    return launches, k3_dev_us / 2e3
 
 
 def main() -> None:
@@ -308,7 +540,8 @@ def main() -> None:
     launches = {name: k.launches for name, k in cuda.kernels().items()}
     peak = torch.cuda.max_memory_allocated()
     levels = len(_pyramid_shapes(SIZE, SIZE, t1.pyramid_levels, t1.pyramid_factor))
-    expect = {"warp3": levels * t1.warps * T, "tvl1_pd": levels * t1.warps * t1.iters * T}
+    expect = {"warp3": levels * t1.warps * T, "tvl1_pd": levels * t1.warps * t1.iters * T,
+              "conv3x3_int8": 0}
     if launches != expect:
         fail(f"slice: kernel launches {launches}, expected {expect}")
     if tuple(heatmaps.shape) != (B, T, SIZE, SIZE) or tuple(gaze.shape) != (B, T, 2):
@@ -357,13 +590,7 @@ def main() -> None:
     t_cpu = time.perf_counter() - t0
     hm_g, gaze_g = heatmaps[:1, :2].cpu(), gaze[:1, :2].cpu()
     hm_diff = float((hm_g - hm_c).abs().max())
-    tie = max(NEAR_TIE, 2 * hm_diff)
-    near_ties, mismatched = [], []
-    for tt in range(2):
-        if not torch.equal(gaze_g[0, tt], gaze_c[0, tt]):
-            gx, gy = (int(v) for v in gaze_g[0, tt])
-            gap = float(hm_c[0, tt].max() - hm_c[0, tt, gy, gx])
-            (near_ties if gap < tie else mismatched).append(tt)
+    near_ties, mismatched, tie = gaze_vs_cpu(hm_g, gaze_g, hm_c, gaze_c)
     emit("slice", batch=B, frames=T, size=SIZE, frames_per_s=B * T / wall, wall_s=wall,
          stage_ms=stage_ms, stage_device_ms=stage_device_ms, step_wall_ms=step_wall_ms,
          step_device_busy_ms=step_busy_ms, device_idle_share=1 - step_busy_ms / step_wall_ms,
@@ -377,18 +604,35 @@ def main() -> None:
     if not hm_diff <= CPU_HEATMAP_TOL:
         fail(f"slice: heatmaps differ from the CPU run by {hm_diff} > {CPU_HEATMAP_TOL}")
 
+    del pipe, cpu, heatmaps, gaze
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- K3
+    summary["conv3x3_int8"] = k3_phase(torch, dev, rng)
+
+    # ---------------------------------------------------------- turbo
+    turbo_launches, k3_step_device_ms = turbo_phase(torch, dev, cuda, frames, fixsac)
+
     # ------------------------------------------------------- kernels
     sources = {"warp3": ("gaze_tpu_torch/csrc/warp.cu", "gaze_tpu/ops/pallas/warp.py:194"),
                "tvl1_pd": ("gaze_tpu_torch/csrc/tvl1_pd.cu",
-                           "gaze_tpu/ops/pallas/tvl1_pd.py:121")}
+                           "gaze_tpu/ops/pallas/tvl1_pd.py:121"),
+               "conv3x3_int8": ("gaze_tpu_torch/csrc/conv_int8.cu",
+                                "gaze_tpu/ops/pallas/conv_int8.py:171")}
+    units = {"warp3": "one call at B=8x224^2", "tvl1_pd": "one 10-iteration call at B=8x224^2",
+             "conv3x3_int8": "one turbo step: its 24 layer launches at B=8, 224^2"}
     rows = []
     for name in cuda.kernels():
         src, replaces = sources[name]
         s = summary[name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": s["max_abs_err"],
-                     "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                     "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+                     "launches": turbo_launches[name],
+                     "launches_by_path": {"parity": launches[name], "turbo": turbo_launches[name]},
+                     "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+                     "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+                     "library_ms": s["library_ms"], "per": units[name]})
+        if name == "conv3x3_int8":
+            rows[-1]["device_ms_in_turbo_clip"] = k3_step_device_ms
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

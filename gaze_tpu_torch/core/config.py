@@ -49,8 +49,8 @@ class TVL1Config:
     # plain versions.
     use_pallas_warp: bool = True
     use_pallas_pd: bool = True
-    # Solve the flow at this fraction of the model grid. The port supports
-    # 1.0 (the parity path) only so far.
+    # Solve the flow at this fraction of the model grid, then upsample the
+    # field and rescale the displacements (1.0 = parity; 0.5 = production).
     flow_scale: float = 1.0
 
 
@@ -121,3 +121,53 @@ def parity_config() -> PipelineConfig:
     return dataclasses.replace(
         base, tvl1=dataclasses.replace(base.tvl1, flow_scale=1.0)
     )
+
+
+def production_config() -> PipelineConfig:
+    """The serving/throughput preset: half-grid TV-L1 — pair with
+    dtype=bfloat16."""
+    base = PipelineConfig()
+    return dataclasses.replace(
+        base, tvl1=dataclasses.replace(base.tvl1, flow_scale=0.5)
+    )
+
+
+def production_fast_config() -> PipelineConfig:
+    """production_config with reduced TV-L1 effort (3 warps, 5
+    iterations per warp)."""
+    base = production_config()
+    return dataclasses.replace(
+        base, tvl1=dataclasses.replace(base.tvl1, warps=3, iters=5)
+    )
+
+
+# The named serving configurations of the JAX package's benchmark
+# (``bench.py:PRESETS``), with the same keys and values. ``turbo`` is
+# ``production_fast_config()`` served in bfloat16 with both VGG streams in
+# int8 (calibrated at the 99.9th percentile of |x|, bf16 conv1_1 stem).
+PRESETS = {
+    "turbo": dict(dtype="bfloat16", flow_scale=0.5, tvl1_warps=3,
+                  tvl1_iters=5, quant=True, quant_percentile=99.9,
+                  quant_stem="bf16", decoder="deconv"),
+    "production": dict(dtype="bfloat16", flow_scale=0.5, tvl1_warps=None,
+                       tvl1_iters=None, quant=False,
+                       quant_percentile=None, quant_stem="int8",
+                       decoder="deconv"),
+    "parity": dict(dtype="float32", flow_scale=1.0, tvl1_warps=None,
+                   tvl1_iters=None, quant=False, quant_percentile=None,
+                   quant_stem="int8", decoder="deconv"),
+}
+
+
+def preset_config(name: str, base: PipelineConfig | None = None) -> PipelineConfig:
+    """``base`` (default ``PipelineConfig()``) with the TV-L1 settings of
+    ``PRESETS[name]``: its flow scale, and its warps and iterations where
+    the preset sets them."""
+    p = PRESETS[name]
+    base = base or PipelineConfig()
+    tv = dataclasses.replace(base.tvl1, flow_scale=p["flow_scale"])
+    if p["tvl1_warps"] is not None:
+        tv = dataclasses.replace(tv, warps=p["tvl1_warps"])
+    if p["tvl1_iters"] is not None:
+        tv = dataclasses.replace(tv, iters=p["tvl1_iters"])
+    return dataclasses.replace(base, tvl1=tv)

@@ -9,6 +9,9 @@ Counterpart of ``gaze_tpu/models/at.py``:
   predicts the next fixation's weights through a ReLU linear head;
 - ``attention_map`` reweights conv5 channels by the prediction, min-max
   normalizes on the conv5 grid and upsamples bilinearly.
+
+``LSTMNet.dtype`` is the activation type (flax's ``dtype``, parameters
+float32): the carry, the gates and the head run in it.
 """
 
 from __future__ import annotations
@@ -58,9 +61,10 @@ class LSTMNet(nn.Module):
     carry is a list over layers of (c, h) pairs, the flax order.
     """
 
-    def __init__(self, cfg: ATConfig):
+    def __init__(self, cfg: ATConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         hs = cfg.hidden_size
         for k in range(cfg.num_layers):
             inp = cfg.feature_dim if k == 0 else hs
@@ -81,18 +85,19 @@ class LSTMNet(nn.Module):
 
     def init_carry(self, batch: int, device=None) -> List[Carry]:
         """Zero (c, h) state for every layer."""
-        z = torch.zeros((batch, self.cfg.hidden_size), device=device)
+        z = torch.zeros((batch, self.cfg.hidden_size), dtype=self.dtype, device=device)
         return [(z, z) for _ in range(self.cfg.num_layers)]
 
     def step(self, carries: List[Carry], w: torch.Tensor) -> Tuple[List[Carry], torch.Tensor]:
         """One recurrence step: (carries, (B, D)) -> (carries, (B, D))."""
-        h_in = w
+        dt = self.dtype
+        h_in = w.to(dt)
         new_carries = []
         for k, (c, h) in enumerate(carries):
-            w_ih = getattr(self, f"weight_ih_l{k}")
-            w_hh = getattr(self, f"weight_hh_l{k}")
-            b_ih = getattr(self, f"bias_ih_l{k}")
-            b_hh = getattr(self, f"bias_hh_l{k}")
+            w_ih = getattr(self, f"weight_ih_l{k}").to(dt)
+            w_hh = getattr(self, f"weight_hh_l{k}").to(dt)
+            b_ih = getattr(self, f"bias_ih_l{k}").to(dt)
+            b_hh = getattr(self, f"bias_hh_l{k}").to(dt)
             # flax OptimizedLSTMCell order: (h W_h + b_h) + x W_i.
             gates = (h @ w_hh.T + b_hh) + (h_in @ w_ih.T + b_ih)
             gi, gf, gg, go = torch.chunk(gates, 4, dim=-1)
@@ -100,7 +105,8 @@ class LSTMNet(nn.Module):
             h = torch.sigmoid(go) * torch.tanh(c)
             new_carries.append((c, h))
             h_in = h
-        return new_carries, F.relu(self.head(h_in))
+        head = F.linear(h_in, self.head.weight.to(dt), self.head.bias.to(dt))
+        return new_carries, F.relu(head)
 
 
 def attention_map(

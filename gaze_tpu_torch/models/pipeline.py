@@ -1,20 +1,24 @@
 """The per-frame gaze step: flow -> SP -> AT -> LF -> argmax, on the card.
 
 Counterpart of ``gaze_tpu/models/pipeline.py`` (``GazePipeline.step``
-and ``make_clip_fn``) on the parity path: float32, flow solved at the
-model grid, the ConvTranspose decoder, no int8. Per frame:
+and ``make_clip_fn``) with the deconv decoder. Per frame:
 
     uint8 frame pair -> resize, normalize, BT.601 gray
-    -> TV-L1 flow (kernels K1, K2) -> 8-bit-clipped temporal input
-    -> SP two streams -> saliency S_t, conv5 F_t
+    -> TV-L1 flow (kernels K1, K2), at the model grid or at
+       ``tvl1.flow_scale`` of it and upsampled -> 8-bit-clipped input
+    -> SP two streams (float, or int8 through kernel K3 with ``quant_sp``)
+    -> saliency S_t, conv5 F_t
     -> pool F_t at argmax(S_t) -> LSTM step, kept only at a fixation onset
     -> attention map from the predicted channel weights
     -> LF(S_t, A_t) -> heatmap -> argmax gaze
 
-The weights live in the modules (``sp``, ``lstm``, ``lf``); the JAX
-package's ``variables`` load through ``models/weights.py``. Options of
-the JAX pipeline that this port does not have yet raise
-``NotImplementedError``.
+The presets (``core/config.py:PRESETS``): parity is float32 at the full
+flow grid; production is bfloat16 activations with half-grid flow;
+turbo adds reduced TV-L1 effort and int8 VGG streams
+(``models/quant.py``). The weights live in the modules (``sp``, ``lstm``,
+``lf``); the JAX package's ``variables`` load through
+``models/weights.py``. Options of the JAX pipeline that this port does
+not have yet raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,13 +31,16 @@ from gaze_tpu_torch.core.config import PipelineConfig
 from gaze_tpu_torch.core.device import resolve_device, set_parity_precision
 from gaze_tpu_torch.models.at import LSTMNet, attention_map, fixation_pool
 from gaze_tpu_torch.models.lf import LateFusion
+from gaze_tpu_torch.models.quant import CONV_IMPLS, QuantSP, quant_taps, quant_vgg_forward
 from gaze_tpu_torch.models.sp import SPNet
 from gaze_tpu_torch.models.weights import StateDict, init_weights, load_state
 from gaze_tpu_torch.ops.heatmap import heatmap_argmax
+from gaze_tpu_torch.ops.image import resize_bilinear
 from gaze_tpu_torch.ops.preprocess import (
     normalize_rgb,
     prepare_temporal_input,
     resize_frames,
+    resize_nchw,
     rgb_to_gray,
     to_float,
 )
@@ -53,16 +60,23 @@ class GazePipeline:
     """SP, AT and LF modules plus config, on one device.
 
     Args:
-      config: the pipeline config (``parity_config()`` for the parity
-        path).
-      dtype: activation type; float32 only so far.
+      config: the pipeline config (``parity_config()``,
+        ``production_config()``, ``production_fast_config()``, or
+        ``preset_config(name)``).
+      dtype: activation type: float32 (parity) or bfloat16 (production,
+        turbo). Parameters stay float32.
       device: ``None`` means ``cuda`` and raises when CUDA is absent;
         ``"cpu"`` runs every op, kernels included, as plain PyTorch.
       seed: seed of the ``torch.Generator`` the weights are drawn from
         (``models/weights.py:init_weights``); replace them with
         :meth:`load_state_dicts`.
-      at_pool, decoder_impl, quant_sp: the JAX pipeline's options;
-        only their parity values are ported.
+      quant_sp: a ``models.quant.QuantSP`` (from ``calibrate_pipeline_sp``
+        or ``models/quant_io.py:load_quant_sp``): both VGG streams run
+        int8, the fuse/decoder tail in ``dtype``.
+      quant_conv: the JAX pipeline's int8 conv choice, "xla" or
+        "pallas"; both run through kernel K3 on the card.
+      at_pool, decoder_impl: the JAX pipeline's options; only their
+        default values are ported.
     """
 
     def __init__(
@@ -73,34 +87,41 @@ class GazePipeline:
         seed: int = 0,
         at_pool: str = "sp_argmax",
         decoder_impl: str = "deconv",
-        quant_sp=None,
+        quant_sp: QuantSP | None = None,
+        quant_conv: str = "xla",
     ):
         if at_pool not in ("sp_argmax", "prediction"):
             raise ValueError(f"unknown at_pool {at_pool!r}")
         if decoder_impl not in ("deconv", "pixelshuffle", "halfres"):
             raise ValueError(f"unknown decoder_impl {decoder_impl!r}")
-        unported = {
-            "dtype": dtype != torch.float32,
-            "at_pool": at_pool != "sp_argmax",
-            "decoder_impl": decoder_impl != "deconv",
-            "quant_sp": quant_sp is not None,
-            "tvl1.flow_scale": config.tvl1.flow_scale != 1.0,
-        }
-        for name, bad in unported.items():
-            if bad:
-                raise NotImplementedError(f"{name}: only the parity value is ported")
+        if quant_conv not in CONV_IMPLS:
+            raise ValueError(f"unknown quant_conv {quant_conv!r}")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"unsupported dtype {dtype}")
+        if at_pool != "sp_argmax":
+            raise NotImplementedError("at_pool: only 'sp_argmax' is ported")
+        if decoder_impl != "deconv":
+            raise NotImplementedError("decoder_impl: only 'deconv' is ported")
+        if quant_sp is not None and not isinstance(quant_sp, QuantSP):
+            raise TypeError(f"quant_sp must be a models.quant.QuantSP, got {type(quant_sp)}")
         self.config = config
         self.dtype = dtype
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_parity_precision()
         gen = torch.Generator().manual_seed(seed)
-        self.sp = SPNet(config.sp)
-        self.lstm = LSTMNet(config.at)
-        self.lf = LateFusion(config.lf)
+        self.sp = SPNet(config.sp, dtype)
+        self.lstm = LSTMNet(config.at, dtype)
+        self.lf = LateFusion(config.lf, dtype)
         for m in self.modules().values():
             init_weights(m, gen)
             m.to(self.device).eval()
+        self.quant_conv = quant_conv
+        self.quant_sp = None if quant_sp is None else quant_sp.to(self.device)
+        self._taps = None if quant_sp is None else {
+            "spatial": quant_taps(self.quant_sp.spatial),
+            "temporal": quant_taps(self.quant_sp.temporal),
+        }
 
     # ------------------------------------------------------- weights ----
     def modules(self) -> Dict[str, torch.nn.Module]:
@@ -125,7 +146,7 @@ class GazePipeline:
         )
         return StreamState(
             carries=self.lstm.init_carry(batch, self.device),
-            w_hat=torch.ones((batch, cfg.at.feature_dim), device=self.device),
+            w_hat=torch.ones((batch, cfg.at.feature_dim), dtype=torch.float32, device=self.device),
             prev_fix=torch.zeros((batch,), device=self.device),
             prev_gaze=center.expand(batch, 2).clone(),
         )
@@ -135,22 +156,44 @@ class GazePipeline:
         self, prev_u8: torch.Tensor, cur_u8: torch.Tensor, flow_img=None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """uint8 (B, H, W, 3) frame pair -> (normalized rgb, normalized
-        flow input), both NHWC at the model grid. The frames are resized
-        before the TV-L1 solve, so the flow grid is the model grid."""
+        flow input), both NHWC at the model grid in ``dtype``. The frames
+        are resized before the TV-L1 solve. With ``tvl1.flow_scale`` below
+        1 the gray frames are resized (antialiased) to that fraction of
+        the grid, solved there, and the flow is upsampled bilinearly and
+        its displacements scaled by 1 / flow_scale."""
         if flow_img is not None:
             raise NotImplementedError("flow_img: the flow-image input is not ported")
         cfg = self.config
-        cur = resize_frames(to_float(cur_u8), cfg.image.height, cfg.image.width)
-        prev = resize_frames(to_float(prev_u8), cfg.image.height, cfg.image.width)
-        flow = tvl1_flow(rgb_to_gray(prev), rgb_to_gray(cur), cfg.tvl1, device=self.device)
+        H, W = cfg.image.height, cfg.image.width
+        cur = resize_frames(to_float(cur_u8), H, W)
+        prev = resize_frames(to_float(prev_u8), H, W)
+        g0, g1 = rgb_to_gray(prev), rgb_to_gray(cur)
+        s = cfg.tvl1.flow_scale
+        if s != 1.0:
+            fhw = (int(round(H * s)), int(round(W * s)))
+            flow_lo = tvl1_flow(resize_bilinear(g0, fhw), resize_bilinear(g1, fhw), cfg.tvl1,
+                                device=self.device)
+            flow = resize_nchw(flow_lo.permute(0, 3, 1, 2), (H, W)).permute(0, 2, 3, 1)
+            flow = flow * (1.0 / s)
+        else:
+            flow = tvl1_flow(g0, g1, cfg.tvl1, device=self.device)
         flow_in = prepare_temporal_input(flow, cfg.tvl1.quant_bound)
-        return normalize_rgb(cur, cfg.image), flow_in
+        return normalize_rgb(cur, cfg.image).to(self.dtype), flow_in.to(self.dtype)
 
     def sp_forward(
         self, rgb_in: torch.Tensor, flow_in: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(saliency (B, H, W), spatial conv5 (B, h, w, C))."""
-        return self.sp(rgb_in, flow_in)
+        """(saliency (B, H, W), spatial conv5 (B, h, w, C)), both float32.
+        With ``quant_sp`` the two streams run int8 and their float32
+        features go through the fuse/decoder tail in ``dtype``."""
+        if self.quant_sp is None:
+            return self.sp(rgb_in, flow_in)
+        feat = quant_vgg_forward(self.quant_sp.spatial, rgb_in, self.quant_conv,
+                                 self._taps["spatial"])
+        f_temporal = quant_vgg_forward(self.quant_sp.temporal, flow_in, self.quant_conv,
+                                       self._taps["temporal"])
+        sal = self.sp.fuse_decode(feat.to(self.dtype), f_temporal.to(self.dtype))
+        return sal, feat
 
     # ---------------------------------------------------------- step ----
     def attend(

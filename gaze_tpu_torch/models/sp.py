@@ -8,6 +8,11 @@ and the spatial stream's conv5 features (what AT pools).
 
 NHWC at the public methods, NCHW inside. The decoder's BatchNorm uses
 its running statistics (inference; call ``.eval()``).
+
+``dtype`` is the activation type (flax's ``dtype``, parameters float32):
+convolutions run in it; BatchNorm normalizes in float32 against its
+float32 statistics and returns ``dtype``, as flax's does; the logits go
+to float32 before the sigmoid, and the conv5 features return as float32.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gaze_tpu_torch.core.config import SPConfig
-from gaze_tpu_torch.models.vgg import VGG16Features
+from gaze_tpu_torch.models.vgg import VGG16Features, conv
 
 
 class Decoder(nn.Module):
@@ -30,9 +35,10 @@ class Decoder(nn.Module):
     taps flipped (the weight bridge flips them) computes the same.
     """
 
-    def __init__(self, cfg: SPConfig, in_channels: int):
+    def __init__(self, cfg: SPConfig, in_channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         c = in_channels
         for i, ch in enumerate(cfg.decoder_channels):
             self.add_module(
@@ -45,32 +51,38 @@ class Decoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW features -> (B, 1, H, W) logits."""
+        dt = self.dtype
+        x = x.to(dt)
         for i in range(len(self.cfg.decoder_channels)):
-            x = getattr(self, f"deconv{i + 1}")(x)
+            d = getattr(self, f"deconv{i + 1}")
+            x = F.conv_transpose2d(x, d.weight.to(dt), d.bias.to(dt), stride=2, padding=1)
             if self.cfg.use_batchnorm:
-                x = getattr(self, f"bn{i + 1}")(x)
+                bn = getattr(self, f"bn{i + 1}")
+                x = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
+                                 bn.bias, False, 0.0, bn.eps).to(dt)
             x = F.relu(x)
-        return self.out_conv(x)
+        return conv(self.out_conv, x)
 
 
 class SPNet(nn.Module):
     """Two-stream SP: (rgb (B,H,W,3), flow (B,H,W,2)) -> (saliency
     (B,H,W), spatial conv5 (B,h,w,C5))."""
 
-    def __init__(self, cfg: SPConfig):
+    def __init__(self, cfg: SPConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         c5 = cfg.stages[-1][-1]
-        self.spatial = VGG16Features(3, cfg.stages)
-        self.temporal = VGG16Features(cfg.flow_channels, cfg.stages)
+        self.spatial = VGG16Features(3, cfg.stages, dtype)
+        self.temporal = VGG16Features(cfg.flow_channels, cfg.stages, dtype)
         self.fuse_conv = nn.Conv2d(2 * c5, cfg.fused_channels, 1)
-        self.decoder = Decoder(cfg, cfg.fused_channels)
+        self.decoder = Decoder(cfg, cfg.fused_channels, dtype)
 
     def forward(
         self, rgb: torch.Tensor, flow: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         f_spatial, f_temporal = self.encode(rgb, flow)
-        return self.fuse_decode(f_spatial, f_temporal), f_spatial
+        return self.fuse_decode(f_spatial, f_temporal), f_spatial.float()
 
     def encode(
         self, rgb: torch.Tensor, flow: torch.Tensor
@@ -81,5 +93,5 @@ class SPNet(nn.Module):
     def fuse_decode(self, f_spatial: torch.Tensor, f_temporal: torch.Tensor) -> torch.Tensor:
         """conv5 features of both streams (NHWC) -> saliency (B, H, W)."""
         fused = torch.cat([f_spatial, f_temporal], dim=-1).permute(0, 3, 1, 2)
-        fused = F.relu(self.fuse_conv(fused.contiguous()))
+        fused = F.relu(conv(self.fuse_conv, fused.to(self.dtype).contiguous()))
         return torch.sigmoid(self.decoder(fused).float())[:, 0]

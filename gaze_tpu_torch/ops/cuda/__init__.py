@@ -10,12 +10,12 @@ from __future__ import annotations
 
 from typing import Dict
 
-from gaze_tpu_torch.ops.cuda import build, tvl1_pd, warp
+from gaze_tpu_torch.ops.cuda import build, conv_int8, tvl1_pd, warp
 
 
 def kernels() -> Dict[str, build.CudaKernel]:
     """Every kernel the port has, by name."""
-    return {"warp3": warp.KERNEL, "tvl1_pd": tvl1_pd.KERNEL}
+    return {"warp3": warp.KERNEL, "tvl1_pd": tvl1_pd.KERNEL, "conv3x3_int8": conv_int8.KERNEL}
 
 
 def reset_launch_counts() -> None:

@@ -7,7 +7,8 @@
 - On CPU tensors the kernel wrappers take their plain versions and the
   launch counters stay at 0; bad inputs are refused.
 - The port's config copy has the JAX dataclasses' defaults, field by
-  field.
+  field, and its presets are the JAX package's (``production_config``,
+  ``production_fast_config``, ``bench.PRESETS``).
 """
 
 import ast
@@ -24,7 +25,10 @@ import torch
 from gaze_tpu.core import config as jconfig
 from gaze_tpu_torch.core import config as tconfig
 from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
+from gaze_tpu_torch.models.quant import QuantSP, calibrate_pipeline_sp
 from gaze_tpu_torch.ops import cuda
+from gaze_tpu_torch.ops.conv_int8 import ConvTap, conv3x3_int8_plain
+from gaze_tpu_torch.ops.cuda.conv_int8 import conv3x3_int8
 from gaze_tpu_torch.ops.cuda.tvl1_pd import pd_iterations, pd_iterations_plain
 from gaze_tpu_torch.ops.cuda.warp import warp3
 from gaze_tpu_torch.ops.tvl1 import tvl1_flow
@@ -75,6 +79,17 @@ def test_fresh_interpreter_runs_a_cpu_step_without_jax():
         frames = np.random.default_rng(0).integers(0, 256, (1, 3, 32, 32, 3), np.uint8)
         hm, gaze = gaze_tpu_torch.run_clip(pipe, frames, np.ones((1, 3), np.float32))
         assert hm.shape == (1, 2, 32, 32) and gaze.shape == (1, 2, 2)
+        # the turbo path: bf16, half-grid flow, int8 streams
+        import torch
+        from gaze_tpu_torch.core.config import preset_config
+        from gaze_tpu_torch.models.quant import calibrate_pipeline_sp
+        cfg = preset_config("turbo", cfg)
+        pipe = gaze_tpu_torch.GazePipeline(cfg, dtype=torch.bfloat16, device="cpu")
+        qsp = calibrate_pipeline_sp(pipe, [(frames[:, 0], frames[:, 1])], percentile=99.9,
+                                    bf16_stem=True)
+        pipe = gaze_tpu_torch.GazePipeline(cfg, dtype=torch.bfloat16, device="cpu", quant_sp=qsp)
+        hm, gaze = gaze_tpu_torch.run_clip(pipe, frames, np.ones((1, 3), np.float32))
+        assert hm.shape == (1, 2, 32, 32) and bool(torch.isfinite(hm).all())
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "gaze_tpu"))
         print("LOADED", loaded)
@@ -111,24 +126,39 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(dtype=torch.bfloat16),
+    dict(quant_tail=True),
     dict(at_pool="prediction"),
     dict(decoder_impl="pixelshuffle"),
     dict(decoder_impl="halfres"),
-    dict(quant_sp=object()),
-    dict(config_flow_scale=0.5),
+    dict(calibrate_quant_tail=True),
+    dict(calibrate_flow_img=True),
 ])
 def test_unported_options_raise(kwargs):
-    cfg = tiny_config()
-    if kwargs.pop("config_flow_scale", None):
-        cfg = dataclasses.replace(cfg, tvl1=dataclasses.replace(cfg.tvl1, flow_scale=0.5))
+    """bf16, the half-grid flow and ``quant_sp`` are ported; the int8
+    tail, the other AT pooling and decoders, and the flow-image input
+    are not."""
+    pipe = GazePipeline(tiny_config(), device="cpu")
+    f = np.zeros((1, 32, 32, 3), np.uint8)
     with pytest.raises(NotImplementedError):
-        GazePipeline(cfg, device="cpu", **kwargs)
+        if kwargs.pop("quant_tail", False):
+            QuantSP(None, None, tail=object())
+        elif kwargs.pop("calibrate_quant_tail", False):
+            calibrate_pipeline_sp(pipe, [(f, f)], quant_tail=True)
+        elif kwargs.pop("calibrate_flow_img", False):
+            calibrate_pipeline_sp(pipe, [(f, f, np.zeros((1, 32, 32, 2), np.uint8))])
+        else:
+            GazePipeline(tiny_config(), device="cpu", **kwargs)
 
 
 def test_unknown_options_and_flow_img_raise():
     with pytest.raises(ValueError):
         GazePipeline(tiny_config(), device="cpu", at_pool="nearest")
+    with pytest.raises(ValueError):
+        GazePipeline(tiny_config(), device="cpu", quant_conv="cudnn")
+    with pytest.raises(ValueError):
+        GazePipeline(tiny_config(), device="cpu", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        GazePipeline(tiny_config(), device="cpu", quant_sp=object())
     pipe = GazePipeline(tiny_config(), device="cpu")
     f = np.zeros((1, 32, 32, 3), np.uint8)
     with pytest.raises(NotImplementedError):
@@ -149,7 +179,45 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
     kw = dict(iters=3, tau=0.25, lambda_=0.15, theta=0.3)
     for a, b in zip(pd_iterations(*g, **kw), pd_iterations_plain(*g, **kw)):
         assert torch.equal(a, b)
-    assert {k: v.launches for k, v in cuda.kernels().items()} == {"warp3": 0, "tvl1_pd": 0}
+    x, tap = int8_layer()
+    assert torch.equal(conv3x3_int8(x, tap), conv3x3_int8_plain(x, tap))
+    assert {k: v.launches for k, v in cuda.kernels().items()} == {
+        "warp3": 0, "tvl1_pd": 0, "conv3x3_int8": 0}
+
+
+def int8_layer(ci=32, co=16, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-128, 128, (2, 6, 7, ci), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (co, 3, 3, ci), dtype=np.int8))
+    a = torch.from_numpy(rng.uniform(1e-4, 1e-3, co).astype(np.float32))
+    c = torch.from_numpy(rng.normal(0, 10, co).astype(np.float32))
+    return x, ConvTap(w, a, c)
+
+
+def test_int8_wrapper_pads_a_small_stem_ci():
+    """An int8 stem's Ci = 3 is padded to 32 with zero weights: the same
+    codes as the plain version of the unpadded layer (pad code 0)."""
+    x, tap = int8_layer(ci=3)
+    tap = ConvTap(tap.w, tap.a, tap.c, None, 0)
+    assert torch.equal(conv3x3_int8(x, tap), conv3x3_int8_plain(x, tap))
+
+
+@pytest.mark.parametrize("bad", ["float_codes", "noncontiguous", "epilogue", "pad_code",
+                                 "channels"])
+def test_int8_wrapper_refuses_bad_inputs(bad):
+    x, tap = int8_layer()
+    if bad == "channels":
+        x = x[..., :-1].contiguous()
+    elif bad == "float_codes":
+        x = x.float()
+    elif bad == "noncontiguous":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "epilogue":
+        tap = ConvTap(tap.w, tap.a[:-1], tap.c)
+    else:
+        tap = ConvTap(tap.w, tap.a, tap.c, None, 200)
+    with pytest.raises((TypeError, ValueError)):
+        conv3x3_int8(x, tap)
 
 
 @pytest.mark.parametrize("bad", ["float64", "noncontiguous", "shape", "narrow"])
@@ -185,5 +253,17 @@ def test_config_copy_matches_the_jax_defaults(name):
         else:
             assert a == b, k
     if name == "PipelineConfig":
-        p, q = tconfig.parity_config(), jconfig.parity_config()
-        assert p.tvl1 == tconfig.TVL1Config(**dataclasses.asdict(q.tvl1))
+        for fn in ("parity_config", "production_config", "production_fast_config"):
+            p, q = getattr(tconfig, fn)(), getattr(jconfig, fn)()
+            assert p.tvl1 == tconfig.TVL1Config(**dataclasses.asdict(q.tvl1)), fn
+            assert dataclasses.asdict(p.sp) == dataclasses.asdict(q.sp), fn
+
+
+def test_presets_match_the_jax_benchmark():
+    import bench
+
+    assert tconfig.PRESETS == bench.PRESETS
+    turbo = tconfig.preset_config("turbo")
+    assert turbo == tconfig.production_fast_config()
+    assert tconfig.preset_config("production") == tconfig.production_config()
+    assert tconfig.preset_config("parity") == tconfig.parity_config()
