@@ -7,10 +7,13 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 It builds the hand-written kernels from gaze_tpu_torch/csrc with nvcc,
 holds each kernel against its plain PyTorch version on the card (K1 warp,
-K2 primal-dual, K3 int8 conv at every layer shape of the turbo path),
-checks that TV-L1 recovers a known translation, and drives two presets
-at full width (224², two VGG16 streams, 512-wide LSTM, LF 32-32-8)
-through ``run_clip`` for B=8 streams x T=8 frames:
+against ``grid_sample``'s device time too; K2 primal-dual with its fused
+median at every pyramid shape, 10 and 5 iterations, 0-2 median passes;
+K3 int8 conv at every layer shape of the turbo path, with the fused 2x2
+max-pool where a stage ends, ragged shapes and the int8 stem), checks
+that TV-L1 recovers a known translation, and drives two presets at
+full width (224², two VGG16 streams, 512-wide LSTM, LF 32-32-8) through
+``run_clip`` for B=8 streams x T=8 frames:
 
 - parity: float32, TV-L1 at 224² (4 levels x 5 warps x 10 iterations);
 - turbo: bfloat16, TV-L1 at 112² (3 levels x 3 warps x 5 iterations),
@@ -41,6 +44,8 @@ F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 INT8_OPS = 1979e12          # H100 SXM dense int8 tensor-core operations
 K1_FLOPS_PER_PIXEL = 43     # coordinates, weights, 3 x 4 taps, epilogue
 K2_FLOPS_PER_PIXEL_ITER = 54
+K2_OPS_PER_PIXEL_MEDIAN = 76   # 19 comparators (a min and a max) x u1, u2
+K2_DESIGN = "halo'd temporal tiling: iterations and median in shared memory, one launch"
 K1_TOL = 1e-4               # relative to max(1, |plain|): fields, grad, rho_c
 K2_TOL = 1e-4               # absolute on u (px) and the duals (|p| <= 1)
 TVL1_SHIFT = (1.3, -0.7)    # known sub-pixel translation, px
@@ -68,6 +73,8 @@ TURBO_INT8_LAYERS = (
     ("conv4_1", 28, 256, 512), ("conv4_2", 28, 512, 512), ("conv4_3", 28, 512, 512),
     ("conv5_1", 14, 512, 512), ("conv5_2", 14, 512, 512), ("conv5_3", 14, 512, 512),
 )
+# The last conv of each stage but the last: K3 fuses the 2x2 max-pool after it.
+TURBO_POOLED_LAYERS = ("conv1_2", "conv2_2", "conv3_3", "conv4_3")
 
 
 def fail(msg: str) -> None:
@@ -187,24 +194,37 @@ def im2col_int8(torch, x, pad_code: int):
 
 def k3_phase(torch, dev, rng):
     """K3 against its plain version at every int8 layer shape of the turbo
-    path (B=8) and a ragged shape, with both epilogues. Returns the
-    summary row of one turbo step (24 launches: 12 layers x 2 streams)."""
+    path (B=8), unpooled and, for the four stage-ending layers, with the
+    fused 2x2 max-pool, and at ragged shapes, with both epilogues. Returns
+    the summary row of one turbo step (24 launches: 12 layers x 2
+    streams, the four stage-ending ones pooled as on the main path)."""
     import torch.nn.functional as F
 
-    from gaze_tpu_torch.ops.conv_int8 import ConvTap, conv3x3_int8_plain, int8_conv_acc
+    from gaze_tpu_torch.ops.conv_int8 import (ConvTap, border_table, conv3x3_int8_plain,
+                                               int8_conv_acc, maxpool2x2_int8)
     from gaze_tpu_torch.ops.cuda.conv_int8 import conv3x3_int8, pad_channels
 
-    # (layer, B, H, W, Ci, Co, dequant, pad code); the int8 stem (off the
-    # turbo path, whose stem is bf16) pads its Ci = 3 to 32 in the wrapper
-    cases = [(name, B, g, g, ci, co, name == "conv5_3", -128)
+    # (layer, B, H, W, Ci, Co, dequant, pad code, pool); the int8 stem (off
+    # the turbo path, whose stem is bf16) pads its Ci = 3 to 32 in the wrapper
+    cases = [(name, B, g, g, ci, co, name == "conv5_3", -128, False)
              for name, g, ci, co in TURBO_INT8_LAYERS]
-    cases += [("ragged", 3, 13, 20, 64, 96, False, -128), ("ragged", 3, 13, 20, 64, 96, True, -128),
-              ("conv1_1_int8_stem", B, SIZE, SIZE, 3, 64, False, 0)]
-    step_layers = {lay[0] for lay in TURBO_INT8_LAYERS}
+    cases += [(name + "+pool", B, g, g, ci, co, False, -128, True)
+              for name, g, ci, co in TURBO_INT8_LAYERS if name in TURBO_POOLED_LAYERS]
+    # a ragged Co and frame (odd edges dropped by the pool) with both
+    # epilogues; few tiles on a 14² grid (the persistent schedule with
+    # BN = 64 and most SMs idle)
+    cases += [("ragged", 3, 13, 20, 64, 96, False, -128, False),
+              ("ragged", 3, 13, 20, 64, 96, True, -128, False),
+              ("ragged+pool", 3, 13, 20, 64, 96, False, -128, True),
+              ("ragged_14x14", 3, 14, 14, 512, 512, False, -128, False),
+              ("conv1_1_int8_stem", B, SIZE, SIZE, 3, 64, False, 0, False)]
+    # each layer as the main path runs it
+    step_layers = {name + ("+pool" if name in TURBO_POOLED_LAYERS else "")
+                   for name, *_ in TURBO_INT8_LAYERS}
     step = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                 ops_ms=0.0, bytes_ms=0.0)
     k3_err = 0.0
-    for name, n, H, W, ci, co, dequant, pad_code in cases:
+    for name, n, H, W, ci, co, dequant, pad_code, pool in cases:
         x = torch.from_numpy(rng.integers(-128, 128, (n, H, W, ci), dtype=np.int8)).to(dev)
         w = torch.from_numpy(rng.integers(-127, 128, (co, 3, 3, ci), dtype=np.int8)).to(dev)
         if dequant:   # conv5_3: c = 128 * col_sum, a = sx * w_scale
@@ -215,13 +235,17 @@ def k3_phase(torch, dev, rng):
             a = torch.from_numpy((rng.normal(0, 2e-3, co) ** 2 + 1e-4).astype(np.float32)).to(dev)
             c = torch.from_numpy(rng.normal(-20, 40, co).astype(np.float32)).to(dev)
             bias = None
-        tap = ConvTap(w, a, c.contiguous(), bias, pad_code)
-        got = conv3x3_int8(x, tap)
+        # with its border table, as quant_taps builds the main path's taps
+        tap = ConvTap(w, a, c.contiguous(), bias, pad_code, border_table(w, pad_code))
+        got = conv3x3_int8(x, tap, pool=pool)
         ref = conv3x3_int8_plain(x, tap)
+        if pool:
+            ref = maxpool2x2_int8(ref)
         torch.cuda.synchronize()
-        if got.dtype != ref.dtype or not torch.equal(got, ref):
-            fail(f"K3 {name} {(n, H, W, ci, co)} dequant={dequant}: "
-                 f"{int((got != ref).sum())} of {got.numel()} outputs differ from plain")
+        if got.dtype != ref.dtype or got.shape != ref.shape or not torch.equal(got, ref):
+            fail(f"K3 {name} {(n, H, W, ci, co)} dequant={dequant} pool={pool}: "
+                 f"{int((got != ref).sum()) if got.shape == ref.shape else 'all'} of "
+                 f"{ref.numel()} outputs differ from plain")
         err = float((got.float() - ref.float()).abs().max())
         k3_err = max(k3_err, err)
         # the yardstick: one int8 matrix product of the im2col matrix (its
@@ -234,17 +258,22 @@ def k3_phase(torch, dev, rng):
         if not torch.equal(acc.reshape(n, H, W, co), int8_conv_acc(x, w, pad_code)):
             fail(f"K3 {name}: the _int_mm yardstick computes another accumulator")
         big = n * H * W >= 8 * 56 * 56
-        ms = cuda_ms(torch, lambda: conv3x3_int8(x, tap), 20 if big else 100)
-        plain = cuda_ms(torch, lambda: conv3x3_int8_plain(x, tap), 3, 1)
+        ms = cuda_ms(torch, lambda: conv3x3_int8(x, tap, pool=pool), 20 if big else 100)
+        if pool:
+            plain = cuda_ms(torch, lambda: maxpool2x2_int8(conv3x3_int8_plain(x, tap)), 3, 1)
+        else:
+            plain = cuda_ms(torch, lambda: conv3x3_int8_plain(x, tap), 3, 1)
         lib = cuda_ms(torch, lambda: torch._int_mm(cols, wt), 20 if big else 100)
-        _, prof = device_profile(torch, lambda: [conv3x3_int8(x, tap) for _ in range(10)])
+        _, prof = device_profile(torch, lambda: [conv3x3_int8(x, tap, pool=pool)
+                                                 for _ in range(10)])
         dev_us, dev_n = device_us(prof, "conv3x3_int8_kernel")
         ops = 2 * n * H * W * 9 * ci * co
-        nbytes = n * H * W * ci + co * 9 * ci + n * H * W * co * (4 if dequant else 1) \
+        nbytes = n * H * W * ci + co * 9 * ci + ref.numel() * (4 if dequant else 1) \
             + 4 * co * (3 if dequant else 2)
         ops_ms, bytes_ms = ops / INT8_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         bound = max(ops_ms, bytes_ms)
-        emit("K3", layer=name, shape=[n, H, W, ci, co], epilogue="dequant" if dequant else "requant",
+        emit("K3", layer=name, shape=[n, H, W, ci, co],
+             epilogue="dequant" if dequant else "requant, 2x2 max-pool" if pool else "requant",
              max_abs_err=err, bitwise_equal=True, kernel_ms=ms,
              kernel_device_us=dev_us / dev_n if dev_n else None, plain_ms=plain,
              library_ms=lib, bound_us=bound * 1e3,
@@ -308,7 +337,7 @@ def turbo_phase(torch, dev, cuda, frames, fixsac):
     fh = int(round(SIZE * t1.flow_scale))
     levels = len(_pyramid_shapes(fh, fh, t1.pyramid_levels, t1.pyramid_factor))
     int8_layers = len(LAYERS) - (1 if p["quant_stem"] == "bf16" else 0)
-    expect = {"warp3": levels * t1.warps * T, "tvl1_pd": levels * t1.warps * t1.iters * T,
+    expect = {"warp3": levels * t1.warps * T, "tvl1_pd": levels * t1.warps * T,
               "conv3x3_int8": 2 * int8_layers * T}
     if launches != expect:
         fail(f"turbo: kernel launches {launches}, expected {expect}")
@@ -337,6 +366,7 @@ def turbo_phase(torch, dev, cuda, frames, fixsac):
     step_busy_ms = busy_ms(prof) / 2
     step_wall_ms = wall * 1e3 / T
     k3_dev_us, k3_n = device_us(prof, "conv3x3_int8_kernel")
+    k2_dev_us, k2_n = device_us(prof, "pd_iterations_kernel")
     top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:10]
     top_kernels = [{"name": k[:90], "ms_per_step": v[0] / 2e3, "launches_per_step": v[1] / 2}
                    for k, v in top]
@@ -357,7 +387,9 @@ def turbo_phase(torch, dev, cuda, frames, fixsac):
          stage_ms=stage_ms, stage_device_ms=stage_device_ms, step_wall_ms=step_wall_ms,
          step_device_busy_ms=step_busy_ms, device_idle_share=1 - step_busy_ms / step_wall_ms,
          k3_device_ms_per_step=k3_dev_us / 2e3, k3_launches_per_step=k3_n / 2,
-         top_kernels=top_kernels, peak_mem_bytes=peak, launches=launches,
+         k2_device_ms_per_step=k2_dev_us / 2e3, k2_launches_per_step=k2_n / 2,
+         launches_per_step=sum(v[1] for v in prof.values()) / 2, top_kernels=top_kernels,
+         peak_mem_bytes=peak, launches=launches,
          cpu_frames=2, cpu_s=t_cpu, cpu_heatmap_max_diff=hm_diff, cpu_heatmap_tol=CPU_TURBO_TOL,
          cpu_gaze_max_diff=float((gaze_g - gaze_c).abs().max()),
          cpu_near_tie_frames=near_ties, cpu_near_tie_threshold=tie,
@@ -380,7 +412,7 @@ def main() -> None:
         from gaze_tpu_torch.ops import cuda
         from gaze_tpu_torch.ops.cuda.tvl1_pd import pd_iterations, pd_iterations_plain
         from gaze_tpu_torch.ops.cuda.warp import warp3
-        from gaze_tpu_torch.ops.image import central_gradient
+        from gaze_tpu_torch.ops.image import central_gradient, median3x3
         from gaze_tpu_torch.ops.tvl1 import _pyramid_shapes, tvl1_flow
         from gaze_tpu_torch.ops.warp import warp3_plain
     except ImportError as e:
@@ -431,25 +463,43 @@ def main() -> None:
         reps = 200 if H >= 112 else 500
         ms = cuda_ms(torch, lambda: warp3(*args), reps)
         plain = cuda_ms(torch, lambda: warp3_plain(*args), 50)
-        lib = cuda_ms(torch, lambda: F.grid_sample(
-            stack, grid, mode="bilinear", padding_mode="border", align_corners=True), reps)
+        def sample():
+            return F.grid_sample(stack, grid, mode="bilinear", padding_mode="border",
+                                 align_corners=True)
+
+        lib = cuda_ms(torch, sample, reps)
         _, prof = device_profile(torch, lambda: [warp3(*args) for _ in range(20)])
         dev_us, dev_n = device_us(prof, "warp3_kernel")
+        # grid_sample's device time, to hold against K1's device time: its
+        # event time, like K1's, includes the host's launch cost
+        _, prof = device_profile(torch, lambda: [sample() for _ in range(20)])
+        lib_us, lib_n = device_us(prof, "grid_sampler")
         nbytes = 10 * 4 * n * H * W
         bound = max(nbytes / HBM_BYTES_PER_S, K1_FLOPS_PER_PIXEL * n * H * W / F32_FLOPS) * 1e3
         emit("K1", shape=list(shape), max_abs_err=err, max_rel_err=rel, tol=K1_TOL,
              kernel_ms=ms, kernel_device_us=dev_us / dev_n if dev_n else None,
-             plain_ms=plain, library_ms=lib, bound_us=bound * 1e3)
+             plain_ms=plain, library_ms=lib,
+             library_device_us=lib_us / lib_n if lib_n else None, bound_us=bound * 1e3)
         if shape == main_shape:
             summary["warp3"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                                    bound_by="bytes")
+                                    bound_by="bytes",
+                                    device_ms=dev_us / dev_n / 1e3 if dev_n else None,
+                                    library_device_ms=lib_us / lib_n / 1e3 if lib_n else None)
     summary["warp3"]["max_abs_err"] = k1_err
 
     # ------------------------------------------------------------- K2
     cfg = parity_config()
     t1 = cfg.tvl1
-    kw = dict(iters=t1.iters, tau=t1.tau, lambda_=t1.lambda_, theta=t1.theta)
     k2_err = 0.0
+    k2_counter = cuda.kernels()["tvl1_pd"]
+
+    def k2_plain(args, kw, passes):
+        out = pd_iterations_plain(*args, **kw)
+        f1, f2 = out[:2]
+        for _ in range(passes):
+            f1, f2 = median3x3(f1), median3x3(f2)
+        return (f1, f2, *out[2:])
+
     for shape in [(B, 224, 224), (B, 112, 112), (B, 56, 56), (B, 28, 28), (2, 24, 40)]:
         n, H, W = shape
         tex = textures(rng, n, H, W)
@@ -468,28 +518,49 @@ def main() -> None:
                 q[:, -1, :] = 0   # y-duals zero in the last row
             p.append(torch.from_numpy(q).to(dev))
         args = (*u, *p, i1wx, i1wy, grad, rho_c)
-        got = pd_iterations(*args, **kw)
-        ref = pd_iterations_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        if not err <= K2_TOL:
-            fail(f"K2 pd_iterations {shape}: max abs error {err} > {K2_TOL}")
-        k2_err = max(k2_err, err)
-        ms = cuda_ms(torch, lambda: pd_iterations(*args, **kw), 100 if H >= 112 else 300)
-        plain = cuda_ms(torch, lambda: pd_iterations_plain(*args, **kw), 20)
-        _, prof = device_profile(torch, lambda: [pd_iterations(*args, **kw) for _ in range(5)])
-        dev_us, dev_n = device_us(prof, "pd_iteration_kernel")
-        nbytes = 16 * 4 * n * H * W
-        flops = K2_FLOPS_PER_PIXEL_ITER * t1.iters * n * H * W
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-        emit("K2", shape=list(shape), iters=t1.iters, max_abs_err=err, tol=K2_TOL,
-             kernel_ms=ms, kernel_device_us=dev_us * t1.iters / dev_n if dev_n else None,
-             plain_ms=plain, library_ms=None, bound_us=bound * 1e3)
-        if shape == main_shape:
-            summary["tvl1_pd"] = dict(
-                ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
-                else "operations")
+        # parity's 10 iterations and turbo's 5; both paths take one median
+        # pass between warps (median_kernel 3), median_kernel 5 takes two
+        for iters in (t1.iters, 5):
+            kw = dict(iters=iters, tau=t1.tau, lambda_=t1.lambda_, theta=t1.theta)
+            for passes in (0, 1, 2):
+                got = pd_iterations(*args, median_passes=passes, **kw)
+                ref = k2_plain(args, kw, passes)
+                torch.cuda.synchronize()
+                err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+                if not err <= K2_TOL:
+                    fail(f"K2 pd_iterations {shape} iters={iters} median_passes={passes}: "
+                         f"max abs error {err} > {K2_TOL}")
+                k2_err = max(k2_err, err)
+                equal = all(torch.equal(g, r) for g, r in zip(got, ref))
+                ms = cuda_ms(torch, lambda: pd_iterations(*args, median_passes=passes, **kw),
+                             50 if H >= 112 else 200)
+                plain = (cuda_ms(torch, lambda: k2_plain(args, kw, passes), 10)
+                         if passes == 1 else None)
+                _, prof = device_profile(
+                    torch, lambda: [pd_iterations(*args, median_passes=passes, **kw)
+                                    for _ in range(10)])
+                dev_us, dev_n = device_us(prof, "pd_iterations_kernel")
+                nbytes = 16 * 4 * n * H * W
+                flops = (K2_FLOPS_PER_PIXEL_ITER * iters
+                         + K2_OPS_PER_PIXEL_MEDIAN * passes) * n * H * W
+                bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+                before = k2_counter.launches
+                pd_iterations(*args, median_passes=passes, **kw)
+                per_call = k2_counter.launches - before
+                emit("K2", shape=list(shape), iters=iters, median_passes=passes, design=K2_DESIGN,
+                     max_abs_err=err, bitwise_equal=equal, tol=K2_TOL, kernel_ms=ms,
+                     kernel_device_us=dev_us / dev_n if dev_n else None,
+                     launches_per_call=per_call, plain_ms=plain, library_ms=None,
+                     bound_us=bound * 1e3)
+                if per_call != 1:
+                    fail(f"K2 {shape}: {per_call} kernel launches for one call, expected 1")
+                if shape == main_shape and iters == t1.iters and passes == 1:
+                    summary["tvl1_pd"] = dict(
+                        ms=ms, device_ms=dev_us / dev_n / 1e3 if dev_n else None,
+                        plain_ms=plain, library_ms=None,
+                        bound_ms=bound, bitwise_equal=equal,
+                        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
+                        else "operations")
     summary["tvl1_pd"]["max_abs_err"] = k2_err
 
     # ----------------------------------------------------------- tvl1
@@ -540,7 +611,7 @@ def main() -> None:
     launches = {name: k.launches for name, k in cuda.kernels().items()}
     peak = torch.cuda.max_memory_allocated()
     levels = len(_pyramid_shapes(SIZE, SIZE, t1.pyramid_levels, t1.pyramid_factor))
-    expect = {"warp3": levels * t1.warps * T, "tvl1_pd": levels * t1.warps * t1.iters * T,
+    expect = {"warp3": levels * t1.warps * T, "tvl1_pd": levels * t1.warps * T,
               "conv3x3_int8": 0}
     if launches != expect:
         fail(f"slice: kernel launches {launches}, expected {expect}")
@@ -581,6 +652,7 @@ def main() -> None:
     top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:8]
     top_kernels = [{"name": k[:90], "ms_per_step": v[0] / 2e3, "launches_per_step": v[1] / 2}
                    for k, v in top]
+    k2_dev_us, k2_n = device_us(prof, "pd_iterations_kernel")
 
     # the same clip, B=1 x T=2, on the CPU through the plain path
     cpu = GazePipeline(cfg, device="cpu")
@@ -594,6 +666,8 @@ def main() -> None:
     emit("slice", batch=B, frames=T, size=SIZE, frames_per_s=B * T / wall, wall_s=wall,
          stage_ms=stage_ms, stage_device_ms=stage_device_ms, step_wall_ms=step_wall_ms,
          step_device_busy_ms=step_busy_ms, device_idle_share=1 - step_busy_ms / step_wall_ms,
+         k2_device_ms_per_step=k2_dev_us / 2e3, k2_launches_per_step=k2_n / 2,
+         launches_per_step=sum(v[1] for v in prof.values()) / 2,
          top_kernels=top_kernels, peak_mem_bytes=peak, launches=launches,
          cpu_frames=2, cpu_s=t_cpu, cpu_heatmap_max_diff=hm_diff,
          cpu_heatmap_tol=CPU_HEATMAP_TOL, cpu_gaze_max_diff=float((gaze_g - gaze_c).abs().max()),
@@ -619,7 +693,8 @@ def main() -> None:
                            "gaze_tpu/ops/pallas/tvl1_pd.py:121"),
                "conv3x3_int8": ("gaze_tpu_torch/csrc/conv_int8.cu",
                                 "gaze_tpu/ops/pallas/conv_int8.py:171")}
-    units = {"warp3": "one call at B=8x224^2", "tvl1_pd": "one 10-iteration call at B=8x224^2",
+    units = {"warp3": "one call at B=8x224^2",
+             "tvl1_pd": "one call at B=8x224^2: 10 iterations and one median pass",
              "conv3x3_int8": "one turbo step: its 24 layer launches at B=8, 224^2"}
     rows = []
     for name in cuda.kernels():
@@ -630,7 +705,12 @@ def main() -> None:
                      "launches_by_path": {"parity": launches[name], "turbo": turbo_launches[name]},
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                      "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-                     "library_ms": s["library_ms"], "per": units[name]})
+                     "library_ms": s["library_ms"], "per": units[name],
+                     "device_ms": s["device_ms"]})
+        if name == "warp3":
+            rows[-1]["library_device_ms"] = s["library_device_ms"]
+        if name == "tvl1_pd":
+            rows[-1]["bitwise_equal"] = s["bitwise_equal"]
         if name == "conv3x3_int8":
             rows[-1]["device_ms_in_turbo_clip"] = k3_step_device_ms
     print(json.dumps({"kernels": rows}), flush=True)

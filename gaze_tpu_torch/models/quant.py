@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from gaze_tpu_torch.models.sp import SPNet
 from gaze_tpu_torch.models.vgg import VGG16_STAGES, VGG16Features
-from gaze_tpu_torch.ops.conv_int8 import ConvTap, maxpool2x2_int8
+from gaze_tpu_torch.ops.conv_int8 import ConvTap, border_table
 from gaze_tpu_torch.ops.cuda.conv_int8 import conv3x3_int8
 
 LAYERS: Tuple[str, ...] = tuple(
@@ -206,7 +206,8 @@ def quant_taps(q: QuantVGG) -> Dict[str, ConvTap]:
     epilogue and the pad code of its input grid. The algebra is the JAX
     package's, one float32 rounding per operation:
     ``a = (sx * w_scale) / sn``, ``c = (b / sn - 128) + (zp * col_sum) * a``;
-    conv5_3 dequantizes with ``a = sx * w_scale``, ``c = zp * col_sum``."""
+    conv5_3 dequantizes with ``a = sx * w_scale``, ``c = zp * col_sum``.
+    Each tap carries its border table for K3's pad correction."""
     taps = {}
     for li, name in enumerate(LAYERS):
         if li == 0 and q.stem_kernel is not None:
@@ -219,9 +220,10 @@ def quant_taps(q: QuantVGG) -> Dict[str, ConvTap]:
             sn = q.act_scales[LAYERS[li + 1]]
             a = (sx * q.w_scales[name]) / sn
             c = (q.biases[name] / sn - ZP) + zp_bias * a
-            taps[name] = ConvTap(w, a, c, None, -zp)
+            taps[name] = ConvTap(w, a, c, None, -zp, border_table(w, -zp))
         else:
-            taps[name] = ConvTap(w, sx * q.w_scales[name], zp_bias, q.biases[name], -zp)
+            taps[name] = ConvTap(w, sx * q.w_scales[name], zp_bias, q.biases[name], -zp,
+                                 border_table(w, -zp))
     return taps
 
 
@@ -260,13 +262,14 @@ def quant_vgg_forward(
     xq = xq.contiguous()
     li = 0
     for s, stage in enumerate(VGG16_STAGES):
-        for _ in stage:
+        for i in range(len(stage)):
             name = LAYERS[li]
             li += 1
             if name in taps:
-                xq = conv3x3_int8(xq, taps[name])
-        if s < len(VGG16_STAGES) - 1:
-            xq = maxpool2x2_int8(xq).contiguous()
+                # every stage but the last ends in a 2x2 max-pool, which K3
+                # fuses into the stage's last conv (never the stem)
+                pool = s < len(VGG16_STAGES) - 1 and i == len(stage) - 1
+                xq = conv3x3_int8(xq, taps[name], pool=pool)
     return xq
 
 

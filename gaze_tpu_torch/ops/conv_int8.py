@@ -18,7 +18,9 @@ The plain version here sums the integer products as a float64
 ``conv2d`` (exact: |acc| <= 9 * 512 * 128 * 127 < 2^53), casts to int32,
 and rounds every epilogue operation on its own (a multiply, then an add:
 no fused multiply-add), so the CUDA kernel K3 (``ops/cuda/conv_int8.py``)
-is held to it bit for bit.
+is held to it bit for bit. K3 zero-fills the frame's border and adds the
+pad code back in its epilogue; :func:`pad_correction` is that step in
+plain form.
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ class ConvTap:
     a, c: (Co,) float32 — see the module docstring.
     bias: None for the requant epilogue; (Co,) float32 for dequant.
     pad_code: the stored code of real zero on the input's grid.
+    border: None, or ``border_table(w, pad_code)`` computed once
+      (``quant_taps`` does); the kernel's wrapper computes it per call
+      otherwise.
     """
 
     w: torch.Tensor
@@ -45,6 +50,43 @@ class ConvTap:
     c: torch.Tensor
     bias: Optional[torch.Tensor] = None
     pad_code: int = -128
+    border: Optional[torch.Tensor] = None
+
+
+def tap_colsum(w: torch.Tensor) -> torch.Tensor:
+    """(9, Co) int32: per tap (dy * 3 + dx) and output channel, the sum of
+    the OHWI weights over Ci."""
+    return w.to(torch.int32).sum(dim=-1, dtype=torch.int32).reshape(w.shape[0], 9).t().contiguous()
+
+
+def border_class(H: int, W: int, device=None) -> torch.Tensor:
+    """(H, W) int64 border class of each pixel: bit 0 top row, bit 1
+    bottom row, bit 2 left column, bit 3 right column (0 inside)."""
+    y = torch.arange(H, device=device)[:, None]
+    x = torch.arange(W, device=device)[None, :]
+    return ((y == 0).long() | (y == H - 1).long() << 1
+            | (x == 0).long() << 2 | (x == W - 1).long() << 3)
+
+
+def border_table(w: torch.Tensor, pad_code: int) -> torch.Tensor:
+    """(16, Co) int32: per border class, ``pad_code`` times the colsums of
+    the taps that leave the frame (top taps dy = 0 on the top row, and so
+    on); row 0 is zero."""
+    colsum = tap_colsum(w)
+    rows = []
+    for cls in range(16):
+        out = [t for t in range(9)
+               if (cls & 1 and t // 3 == 0) or (cls & 2 and t // 3 == 2)
+               or (cls & 4 and t % 3 == 0) or (cls & 8 and t % 3 == 2)]
+        rows.append(colsum[out].sum(dim=0, dtype=torch.int32) if out
+                    else torch.zeros_like(colsum[0]))
+    return (torch.stack(rows) * pad_code).contiguous()
+
+
+def pad_correction(border: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """(H, W, Co) int32: what padding with the pad code adds to the
+    accumulator of a zero-padded conv, from ``border_table``."""
+    return border[border_class(H, W, border.device)]
 
 
 def int8_conv_acc(x: torch.Tensor, w: torch.Tensor, pad_code: int) -> torch.Tensor:

@@ -3,9 +3,10 @@ Sanchez et al., IPOL 2013) with fixed level/warp/iteration counts.
 
 Counterpart of ``gaze_tpu/ops/tvl1.py``. Per (level, warp) the solver
 warps I1 and its gradients (kernel K1, ``ops/cuda/warp.py``), runs the
-primal-dual iterations (kernel K2, ``ops/cuda/tvl1_pd.py``) and applies
-the between-warp median (plain PyTorch). CUDA tensors go through the
-kernels, CPU tensors through their plain versions.
+primal-dual iterations and the between-warp median (kernel K2,
+``ops/cuda/tvl1_pd.py``, one launch for both), or their plain versions
+when the config asks for them. CUDA tensors go through the kernels, CPU
+tensors through their plain versions.
 """
 
 from __future__ import annotations
@@ -26,12 +27,12 @@ from gaze_tpu_torch.ops.image import (
 from gaze_tpu_torch.ops.warp import warp3_plain
 
 
-def _median(u: torch.Tensor, cfg: TVL1Config) -> torch.Tensor:
-    """One 3x3 median pass, or two chained passes for median_kernel=5."""
-    u = median3x3(u)
-    if cfg.median_kernel >= 5:
-        u = median3x3(u)
-    return u
+def _median_passes(cfg: TVL1Config) -> int:
+    """3x3 median passes after each warp: none, one, or two chained
+    passes for median_kernel=5."""
+    if not cfg.median_filter:
+        return 0
+    return 2 if cfg.median_kernel >= 5 else 1
 
 
 def _pyramid_shapes(h: int, w: int, levels: int, factor: float) -> List[Tuple[int, int]]:
@@ -67,17 +68,18 @@ def _solve_level(
     p12 = torch.zeros_like(u1)
     p21 = torch.zeros_like(u1)
     p22 = torch.zeros_like(u1)
-    pd = tvl1_pd.pd_iterations if cfg.use_pallas_pd else tvl1_pd.pd_iterations_plain
+    passes = _median_passes(cfg)
+    kw = dict(iters=cfg.iters, tau=cfg.tau, lambda_=cfg.lambda_, theta=cfg.theta)
     for _ in range(cfg.warps):
         # The flow is frozen during the inner iterations (warping scheme).
         i1wx, i1wy, grad, rho_c = _warp3(i1, i1x, i1y, u1, u2, i0, cfg)
-        u1, u2, p11, p12, p21, p22 = pd(
-            u1, u2, p11, p12, p21, p22, i1wx, i1wy, grad, rho_c,
-            iters=cfg.iters, tau=cfg.tau, lambda_=cfg.lambda_, theta=cfg.theta,
-        )
-        if cfg.median_filter:
-            u1 = _median(u1, cfg)
-            u2 = _median(u2, cfg)
+        args = (u1, u2, p11, p12, p21, p22, i1wx, i1wy, grad, rho_c)
+        if cfg.use_pallas_pd:   # K2 applies the median after its last iteration
+            u1, u2, p11, p12, p21, p22 = tvl1_pd.pd_iterations(*args, median_passes=passes, **kw)
+        else:
+            u1, u2, p11, p12, p21, p22 = tvl1_pd.pd_iterations_plain(*args, **kw)
+            for _ in range(passes):
+                u1, u2 = median3x3(u1), median3x3(u2)
     return u1, u2
 
 

@@ -220,6 +220,31 @@ def test_int8_wrapper_refuses_bad_inputs(bad):
         conv3x3_int8(x, tap)
 
 
+@pytest.mark.parametrize("bad", ["median_passes", "negative_median", "negative_iters",
+                                 "border_dtype", "border_shape", "pool_dequant"])
+def test_redesigned_wrappers_refuse_what_their_kernels_do_not_take(bad):
+    """K2 takes 0, 1 or 2 median passes and iters >= 0; K3's border table
+    is (16, Co) int32, and it pools only after a requantizing layer."""
+    g = fields(10, seed=1)
+    kw = dict(iters=3, tau=0.25, lambda_=0.15, theta=0.3)
+    x, tap = int8_layer()
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "median_passes":
+            pd_iterations(*g, median_passes=3, **kw)
+        elif bad == "negative_median":
+            pd_iterations(*g, median_passes=-1, **kw)
+        elif bad == "negative_iters":
+            pd_iterations(*g, **{**kw, "iters": -1})
+        elif bad == "pool_dequant":
+            conv3x3_int8(x, ConvTap(tap.w, tap.a, tap.c, tap.c, -128), pool=True)
+        elif bad == "border_dtype":
+            conv3x3_int8(x, ConvTap(tap.w, tap.a, tap.c, None, -128,
+                                    torch.zeros((16, 16), dtype=torch.int64)))
+        else:
+            conv3x3_int8(x, ConvTap(tap.w, tap.a, tap.c, None, -128,
+                                    torch.zeros((9, 16), dtype=torch.int32)))
+
+
 @pytest.mark.parametrize("bad", ["float64", "noncontiguous", "shape", "narrow"])
 def test_wrappers_refuse_bad_inputs(bad):
     f = fields(6)

@@ -93,8 +93,8 @@ def clip_inputs():
 def test_run_clip_matches_make_clip_fn(narrow, name):
     """B=2 streams x T=3 steps with fixation onsets, continued fixations
     and saccades. Turbo's int8 streams are the JAX package's calibration
-    (four pairs of the clip, 99.9th percentile, bf16 stem) carried across,
-    so both sides serve the same codes."""
+    (three pairs of the clip, 99.9th percentile, bf16 stem) carried
+    across, so both sides serve the same codes."""
     jcfg, tcfg, v = narrow
     jcfg, tcfg = preset(jcfg, tcfg, name)
     p = tconfig.PRESETS[name]
@@ -104,11 +104,16 @@ def test_run_clip_matches_make_clip_fn(narrow, name):
     pairs = [(frames[:, i], frames[:, i + 1]) for i in range(3)]
     qsp = None
     if p["quant"]:
-        jq = jquant.calibrate_pipeline_sp(jp, v, pairs, percentile=p["quant_percentile"],
-                                          bf16_stem=p["quant_stem"] == "bf16")
+        # calibrate_pipeline_sp, with one compiled preprocess_pair serving
+        # both the calibration batches and the half-grid check below
+        pre = jax.jit(jp.preprocess_pair)
+        batches = [pre(jnp.asarray(a), jnp.asarray(b), None) for a, b in pairs]
+        jq = jquant.calibrate_sp(
+            v["sp"]["params"], [np.asarray(r, np.float32) for r, _ in batches],
+            [np.asarray(f, np.float32) for _, f in batches], 1.0, p["quant_percentile"],
+            bf16_stem=p["quant_stem"] == "bf16")
         qsp = quant_sp_from_numpy(jax.tree.map(np.asarray, jq))
-        # the half-grid preprocessing, as the calibration just ran it
-        want = jax.jit(jp.preprocess_pair)(jnp.asarray(pairs[0][0]), jnp.asarray(pairs[0][1]), None)
+        want = batches[0]
         got = GazePipeline(tcfg, dtype=dtype, device="cpu").preprocess_pair(
             torch.from_numpy(pairs[0][0]), torch.from_numpy(pairs[0][1]))
         assert got[0].dtype == got[1].dtype == torch.bfloat16
