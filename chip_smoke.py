@@ -20,10 +20,22 @@ full width (224², two VGG16 streams, 512-wide LSTM, LF 32-32-8) through
   both VGG streams int8 (K3) after a calibration on 4 frame pairs of the
   clip at the 99.9th percentile with the bf16 stem.
 
+Then two phases drive the serving and evaluation surface on the turbo
+pipeline's weights and calibration:
+
+- serve: a ``StreamServer`` of 16 slots with online I-DT fixations,
+  driven by ``submit()`` over 24 frame batches (12 slots attached; at
+  batch 8, with a submit in flight, two detached and two attached), then
+  ``flush()`` and direct ticks; a second server ticked over the turbo
+  clip is held against ``run_clip``'s outputs;
+- rollout: ``rollout_eval_arrays`` over 8 synthetic videos of 17 frames
+  (one with 3 untracked frames) at chunk lengths 8 and 16, whose sums
+  must be equal, and a CPU run of one video's first 5 frames.
+
 Each path runs with the launch counters set to 0 just before it and read
 just after, and must have launched each of its kernels as often as its
-configuration says. A short CPU run of each clip with the same weights is
-compared with the card's. Every phase prints one JSON line; any failed
+configuration says (the server per tick). A short CPU run of each clip
+and of the rollout with the same weights is compared with the card's. Every phase prints one JSON line; any failed
 check exits non-zero before the last line, which is
 ``{"ok": true, "device": {...}}``. All inputs come from numpy seeds and
 all weights from a ``torch.Generator`` seed.
@@ -75,6 +87,19 @@ TURBO_INT8_LAYERS = (
 )
 # The last conv of each stage but the last: K3 fuses the 2x2 max-pool after it.
 TURBO_POOLED_LAYERS = ("conv1_2", "conv2_2", "conv3_3", "conv4_3")
+# The serve phase: a turbo StreamServer of 16 slots, 12 attached, driven by
+# submit() over 24 frame batches; at batch 8, with a submit in flight, two
+# slots are detached and two others attached. Then 8 direct ticks.
+SERVE_STREAMS, SERVE_TICKS, S_ATTACHED = 16, 24, 12
+SERVE_SWAP_AT, SERVE_DETACH, SERVE_ATTACH = 8, (10, 11), (12, 13)
+SERVE_DIRECT_TICKS = 8
+SERVE_CLIP_TOL = 1e-3       # server vs run_clip on the card, heatmaps in [0, 1]
+# The rollout phase: 8 synthetic videos of 17 frames at 224^2; video 3 has
+# 3 untracked frames (5, 6, 7: valid 0, gaze NaN); chunks of 8 and 16.
+ROLL_V, ROLL_T, ROLL_UNTRACKED, ROLL_CHUNKS = 8, 17, (3, 5, 8), (8, 16)
+ROLL_CPU_FRAMES = 5         # video 0's first frames, on the CPU too
+ROLL_AAE_TOL = 1e-3         # degrees per frame, float32 ray arithmetic
+ROLL_AUC_TOL = 1e-6         # per frame, float32 rounding of the score
 
 
 def fail(msg: str) -> None:
@@ -167,18 +192,27 @@ def textures(rng, n: int, H: int, W: int, waves: int = 8):
     return at
 
 
+def near_ties(hm_ref, gaze_ref, gaze_got, tie: float):
+    """([stream, frame] pairs whose gaze differs at a near tie, those where
+    it differs otherwise) over (N, T, ...) outputs: a pick may differ from
+    the reference only where it lies within ``tie`` of the reference
+    heatmap's maximum."""
+    ties, mismatched = [], []
+    for b in range(gaze_got.shape[0]):
+        for tt in range(gaze_got.shape[1]):
+            if not gaze_got[b, tt].equal(gaze_ref[b, tt]):
+                gx, gy = (int(v) for v in gaze_got[b, tt])
+                gap = float(hm_ref[b, tt].max() - hm_ref[b, tt, gy, gx])
+                (ties if gap < tie else mismatched).append([b, tt])
+    return ties, mismatched
+
+
 def gaze_vs_cpu(hm_g, gaze_g, hm_c, gaze_c):
-    """(near-tie frames, mismatched frames, tie threshold) of stream 0:
-    the card's gaze may differ from the CPU run's only where its pick is
-    within max(NEAR_TIE, 2 x the heatmap difference) of the CPU maximum."""
+    """(near-tie frames, mismatched frames, tie threshold) of the card's
+    run against the CPU's: the tie threshold is max(NEAR_TIE, 2 x the
+    heatmap difference)."""
     tie = max(NEAR_TIE, 2 * float((hm_g - hm_c).abs().max()))
-    near_ties, mismatched = [], []
-    for tt in range(gaze_g.shape[1]):
-        if not gaze_g[0, tt].equal(gaze_c[0, tt]):
-            gx, gy = (int(v) for v in gaze_g[0, tt])
-            gap = float(hm_c[0, tt].max() - hm_c[0, tt, gy, gx])
-            (near_ties if gap < tie else mismatched).append(tt)
-    return near_ties, mismatched, tie
+    return (*near_ties(hm_c, gaze_c, gaze_g, tie), tie)
 
 
 def im2col_int8(torch, x, pad_code: int):
@@ -221,8 +255,8 @@ def k3_phase(torch, dev, rng):
     # each layer as the main path runs it
     step_layers = {name + ("+pool" if name in TURBO_POOLED_LAYERS else "")
                    for name, *_ in TURBO_INT8_LAYERS}
-    step = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                ops_ms=0.0, bytes_ms=0.0)
+    step = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, library_device_ms=0.0,
+                bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
     k3_err = 0.0
     for name, n, H, W, ci, co, dequant, pad_code, pool in cases:
         x = torch.from_numpy(rng.integers(-128, 128, (n, H, W, ci), dtype=np.int8)).to(dev)
@@ -267,6 +301,9 @@ def k3_phase(torch, dev, rng):
         _, prof = device_profile(torch, lambda: [conv3x3_int8(x, tap, pool=pool)
                                                  for _ in range(10)])
         dev_us, dev_n = device_us(prof, "conv3x3_int8_kernel")
+        # the yardstick on the device clock too: every kernel of 10 calls
+        _, prof = device_profile(torch, lambda: [torch._int_mm(cols, wt) for _ in range(10)])
+        lib_dev_us = busy_ms(prof) * 1e3 / 10
         ops = 2 * n * H * W * 9 * ci * co
         nbytes = n * H * W * ci + co * 9 * ci + ref.numel() * (4 if dequant else 1) \
             + 4 * co * (3 if dequant else 2)
@@ -276,7 +313,7 @@ def k3_phase(torch, dev, rng):
              epilogue="dequant" if dequant else "requant, 2x2 max-pool" if pool else "requant",
              max_abs_err=err, bitwise_equal=True, kernel_ms=ms,
              kernel_device_us=dev_us / dev_n if dev_n else None, plain_ms=plain,
-             library_ms=lib, bound_us=bound * 1e3,
+             library_ms=lib, library_device_us=lib_dev_us, bound_us=bound * 1e3,
              bound_by="operations" if ops_ms >= bytes_ms else "bytes",
              tops=ops / ms / 1e9)
         if name in step_layers:   # each runs once per stream: twice per step
@@ -284,6 +321,7 @@ def k3_phase(torch, dev, rng):
             step["device_ms"] += 2 * (dev_us / dev_n / 1e3 if dev_n else float("nan"))
             step["plain_ms"] += 2 * plain
             step["library_ms"] += 2 * lib
+            step["library_device_ms"] += 2 * lib_dev_us / 1e3
             step["bound_ms"] += 2 * bound
             step["ops_ms"] += 2 * ops_ms
             step["bytes_ms"] += 2 * bytes_ms
@@ -296,7 +334,8 @@ def k3_phase(torch, dev, rng):
 
 def turbo_phase(torch, dev, cuda, frames, fixsac):
     """The turbo preset's main path: calibration, then the B x T clip.
-    Returns its launch counts."""
+    Returns what the serve and rollout phases reuse: the pipeline, its
+    calibration and weights, the clip's outputs and launch counts."""
     from gaze_tpu_torch.core.config import PRESETS, preset_config
     from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
     from gaze_tpu_torch.models.quant import LAYERS, calibrate_pipeline_sp
@@ -398,7 +437,235 @@ def turbo_phase(torch, dev, cuda, frames, fixsac):
         fail(f"turbo: gaze differs from the CPU run at frames {mismatched}")
     if not hm_diff <= CPU_TURBO_TOL:
         fail(f"turbo: heatmaps differ from the CPU run by {hm_diff} > {CPU_TURBO_TOL}")
-    return launches, k3_dev_us / 2e3
+    return dict(pipe=pipe, cfg=cfg, dtype=dtype, qsp=qsp, weights=pipe.state_dicts(),
+                heatmaps=heatmaps, gaze=gaze, launches=launches,
+                k3_device_ms_per_step=k3_dev_us / 2e3,
+                per_step={"warp3": levels * t1.warps, "tvl1_pd": levels * t1.warps,
+                          "conv3x3_int8": 2 * int8_layers})
+
+
+def serve_phase(torch, cuda, turbo, frames, fixsac, rng):
+    """The turbo ``StreamServer``: a run of submit() calls with attach and
+    detach under way, then direct ticks; and a second server ticked over
+    the turbo clip, held against ``run_clip``'s outputs. Returns the
+    submit run's launch counts."""
+    from gaze_tpu_torch.serve import StreamServer
+
+    cfg, dtype, qsp, weights = turbo["cfg"], turbo["dtype"], turbo["qsp"], turbo["weights"]
+    per_tick = turbo["per_step"]
+    S, n = SERVE_STREAMS, SERVE_TICKS
+    pad = 8
+    canvas = textures(rng, 3 * S, SIZE + 2 * pad, SIZE + 2 * pad)()
+    canvas = np.round(canvas.reshape(S, 3, SIZE + 2 * pad, SIZE + 2 * pad).transpose(0, 2, 3, 1)
+                      * 255).astype(np.uint8)
+    drift = np.clip(np.cumsum(rng.integers(-1, 2, (n, S, 2)), axis=0), -pad, pad) + pad
+    batches = [np.stack([canvas[i, y:y + SIZE, x:x + SIZE] for i, (x, y) in enumerate(d)])
+               for d in drift]
+
+    def server(streams, **kw):
+        return StreamServer(cfg, weights, streams, dtype=dtype, quant_sp=qsp, **kw)
+
+    warm = server(S)                      # cuDNN plans and allocator at S streams
+    for i in range(S):
+        warm.attach(i)
+    warm.tick(batches[0])
+    warm.tick(batches[1])
+    del warm
+
+    srv = server(S)                       # online I-DT fixations
+    first = list(range(S_ATTACHED))
+    for i in first:
+        srv.attach(i)
+    active = set(first)
+    fresh = set(first)
+    expect_active, expect_fresh = {}, {}   # per frame, the slots as its tick saw them
+
+    def launches():
+        return {k: v.launches for k, v in cuda.kernels().items()}
+
+    def check_launches(ticks, where):
+        want = {k: v * ticks for k, v in per_tick.items()}
+        if launches() != want:
+            fail(f"serve: {where}: kernel launches {launches()}, expected {want}")
+
+    results, submit_ms = {}, []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    t_start = time.perf_counter()
+    for t in range(n):
+        if t == SERVE_SWAP_AT:            # a submit is in flight: attach/detach drain it
+            for i in SERVE_DETACH:
+                srv.detach(i)
+                active.discard(i)
+            for i in SERVE_ATTACH:
+                srv.attach(i)
+                active.add(i)
+                fresh.add(i)
+            check_launches(t, "after the attach/detach drain")
+        expect_active[t], expect_fresh[t] = set(active), set(fresh)
+        fresh = set()
+        t0 = time.perf_counter()
+        r = srv.submit(batches[t])
+        dt = time.perf_counter() - t0
+        check_launches(t, f"submit {t}")
+        if t == 0:
+            if r is not None:
+                fail("serve: the first submit returned a result")
+            continue
+        if r is None:
+            fail(f"serve: submit {t} returned no result")
+        results[t - 1] = r["gaze"]
+        if t != SERVE_SWAP_AT:            # the stashed result ran no tick here
+            submit_ms.append(dt * 1e3)
+    r = srv.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    results[n - 1] = r["gaze"]
+    check_launches(n, "flush")
+    submit_launches = launches()
+    peak = torch.cuda.max_memory_allocated()
+    stream_frames = sum(len(expect_active[f]) for f in range(n))
+    for f in range(n):
+        g = results[f]
+        for i in range(S):
+            sentinel = i not in expect_active[f] or i in expect_fresh[f]
+            if sentinel and not (g[i] == -1).all():
+                fail(f"serve: frame {f} slot {i}: gaze {g[i].tolist()}, expected (-1, -1)")
+            if not sentinel and not (np.isfinite(g[i]).all() and (g[i] >= 0).all()
+                                     and (g[i] <= SIZE - 1).all()):
+                fail(f"serve: frame {f} slot {i}: gaze {g[i].tolist()} outside the image")
+
+    # direct ticks: their wall times, and a tick's device busy time
+    tick_ms = []
+    for t in range(SERVE_DIRECT_TICKS):
+        t0 = time.perf_counter()
+        srv.tick(batches[t])
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    _, prof = device_profile(torch, lambda: [srv.tick(batches[t]) for t in range(3)])
+    tick_busy_ms = busy_ms(prof) / 3
+    del srv
+
+    # a second server with explicit fixation bits over the turbo clip
+    srv = server(B, keep_heatmaps=True)
+    for i in range(B):
+        srv.attach(i)
+    srv.tick(frames[:, 0], fixsac[:, 0])
+    outs = [srv.tick(frames[:, t], fixsac[:, t]) for t in range(1, T + 1)]
+    hm = torch.stack([torch.from_numpy(o["heatmap"]) for o in outs], dim=1)
+    srv_gaze = torch.stack([torch.from_numpy(o["gaze"]) for o in outs], dim=1)
+    ref_hm, ref_gaze = turbo["heatmaps"].float().cpu(), turbo["gaze"].cpu()
+    clip_diff = float((hm - ref_hm).abs().max())
+    tie = max(NEAR_TIE, 2 * clip_diff)
+    clip_ties, clip_mismatched = near_ties(ref_hm, ref_gaze, srv_gaze, tie)
+    del srv
+
+    emit("serve", streams=S, attached_at_start=S_ATTACHED, ticks=n,
+         swap_at=SERVE_SWAP_AT, detached=list(SERVE_DETACH), attached=list(SERVE_ATTACH),
+         fixation_source="idt", stream_frames=stream_frames, submit_run_wall_s=wall,
+         frames_per_s=stream_frames / wall,
+         submit_ms_median=float(np.median(submit_ms)),
+         submit_ms_p90=float(np.percentile(submit_ms, 90)), submit_ticks_timed=len(submit_ms),
+         tick_ms_median=float(np.median(tick_ms)), tick_ms_p90=float(np.percentile(tick_ms, 90)),
+         tick_device_busy_ms=tick_busy_ms,
+         device_idle_share=1 - tick_busy_ms / float(np.median(tick_ms)),
+         peak_mem_bytes=peak, launches=submit_launches, launches_per_tick=per_tick,
+         clip_vs_run_clip_max_diff=clip_diff, clip_tol=SERVE_CLIP_TOL,
+         clip_near_tie_frames=clip_ties, clip_near_tie_threshold=tie)
+    if clip_mismatched:
+        fail(f"serve: gaze differs from run_clip's at [stream, frame] {clip_mismatched}")
+    if not clip_diff <= SERVE_CLIP_TOL:
+        fail(f"serve: heatmaps differ from run_clip's by {clip_diff} > {SERVE_CLIP_TOL}")
+    return submit_launches
+
+
+
+def rollout_phase(torch, cuda, turbo):
+    """``rollout_eval_arrays`` with the turbo pipeline over V synthetic
+    videos at two chunk lengths, and a short CPU run held to the card's
+    within bands derived from the two runs' per-frame outputs. Returns
+    the launch counts of the chunk_len-8 run."""
+    from gaze_tpu_torch.data.synthetic import SyntheticSpec, generate_sequence
+    from gaze_tpu_torch.evaluation.metrics import pixel_to_ray
+    from gaze_tpu_torch.evaluation.rollout import rollout_eval_arrays
+    from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
+
+    pipe, cfg = turbo["pipe"], turbo["cfg"]
+    seqs = [generate_sequence(SyntheticSpec(num_frames=ROLL_T, height=SIZE, width=SIZE, seed=s))
+            for s in range(ROLL_V)]
+    frames, gaze, fixsac = (np.stack(x) for x in zip(*seqs))
+    valid = np.ones((ROLL_V, ROLL_T), np.float32)
+    v, lo, hi = ROLL_UNTRACKED
+    valid[v, lo:hi] = 0.0
+    gaze[v, lo:hi] = np.nan
+    want_count = valid[:, 1:].sum(axis=1)
+    runs = {}
+    for chunk_len in ROLL_CHUNKS:
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        sums = rollout_eval_arrays(pipe, frames, gaze, fixsac, valid, chunk_len=chunk_len)
+        torch.cuda.synchronize()
+        runs[chunk_len] = (sums, time.perf_counter() - t0,
+                           {k: c.launches for k, c in cuda.kernels().items()})
+    (aae_s, auc_s, cnt), secs, launches = runs[ROLL_CHUNKS[0]]
+    steps = ROLL_T - 1
+    expect = {k: c * steps for k, c in turbo["per_step"].items()}
+    for chunk_len, (sums, _, got) in runs.items():
+        if got != expect:
+            fail(f"rollout chunk_len={chunk_len}: kernel launches {got}, expected {expect}")
+        if not np.array_equal(sums[2], want_count):
+            fail(f"rollout chunk_len={chunk_len}: counts {sums[2].tolist()}, "
+                 f"expected {want_count.tolist()}")
+        if not all(np.isfinite(x).all() for x in sums):
+            fail(f"rollout chunk_len={chunk_len}: non-finite sums")
+        if not all(np.array_equal(a, b) for a, b in zip(sums, runs[ROLL_CHUNKS[0]][0])):
+            fail(f"rollout: the sums at chunk_len {chunk_len} differ from those at "
+                 f"{ROLL_CHUNKS[0]}")
+
+    # video 0's first frames on the card and on the CPU, with the same
+    # weights and calibration; their per-frame outputs bound the sums'
+    # difference: AAE by the angle between the two gazes, AUC by the
+    # pixels whose order against the GT pixel a heatmap difference of
+    # delta can flip (within 2 delta of its value), over H*W
+    n = ROLL_CPU_FRAMES
+    sub = (frames[:1, :n], gaze[:1, :n], fixsac[:1, :n], valid[:1, :n])
+    cpu = GazePipeline(cfg, dtype=turbo["dtype"], device="cpu", quant_sp=turbo["qsp"])
+    cpu.load_state_dicts(turbo["weights"])
+    card_sums = rollout_eval_arrays(pipe, *sub, chunk_len=n)
+    t0 = time.perf_counter()
+    cpu_sums = rollout_eval_arrays(cpu, *sub, chunk_len=n)
+    cpu_s = time.perf_counter() - t0
+    hm_g, gz_g = (x.float().cpu() for x in run_clip(pipe, frames[:1, :n], fixsac[:1, :n]))
+    hm_c, gz_c = (x.float() for x in run_clip(cpu, frames[:1, :n], fixsac[:1, :n]))
+    delta = float((hm_g - hm_c).abs().max())
+    aae_band = auc_band = 0.0
+    for t in range(n - 1):
+        rays = pixel_to_ray(torch.stack([gz_g[0, t], gz_c[0, t]]), (SIZE, SIZE), cfg.camera)
+        chord = float((rays[0] - rays[1]).norm())
+        aae_band += float(np.degrees(2 * np.arcsin(min(chord / 2, 1.0)))) + ROLL_AAE_TOL
+        gx, gy = (int(np.clip(np.round(c), 0, SIZE - 1)) for c in gaze[0, t + 1])
+        close = int(((hm_c[0, t] - hm_c[0, t, gy, gx]).abs() <= 2 * delta).sum())
+        auc_band += close / SIZE ** 2 + ROLL_AUC_TOL
+    ties, mismatched = near_ties(hm_c, gz_c, gz_g, max(NEAR_TIE, 2 * delta))
+    d_aae = float(abs(card_sums[0] - cpu_sums[0])[0])
+    d_auc = float(abs(card_sums[1] - cpu_sums[1])[0])
+    scored = float(cnt.sum())
+    emit("rollout", videos=ROLL_V, frames=ROLL_T, size=SIZE, untracked=list(ROLL_UNTRACKED),
+         chunk_lens=list(ROLL_CHUNKS), seconds=secs,
+         seconds_by_chunk_len={str(k): r[1] for k, r in runs.items()},
+         frames_per_s=scored / secs, mean_aae_deg=float(aae_s.sum() / scored),
+         mean_auc=float(auc_s.sum() / scored), counts=cnt.tolist(),
+         aae_sums=aae_s.tolist(), auc_sums=auc_s.tolist(), launches=launches,
+         cpu_frames=n, cpu_s=cpu_s, cpu_count=float(cpu_sums[2][0]),
+         cpu_aae_sum_diff=d_aae, cpu_aae_band=aae_band, cpu_auc_sum_diff=d_auc,
+         cpu_auc_band=auc_band, cpu_heatmap_max_diff=delta, cpu_near_tie_frames=ties)
+    if mismatched:
+        fail(f"rollout: the card's gaze differs from the CPU run's at {mismatched}")
+    if cpu_sums[2][0] != card_sums[2][0] or not (d_aae <= aae_band and d_auc <= auc_band):
+        fail(f"rollout: card vs CPU: count {card_sums[2][0]} vs {cpu_sums[2][0]}, AAE sum "
+             f"{d_aae} (band {aae_band}), AUC sum {d_auc} (band {auc_band})")
+    return launches
 
 
 def main() -> None:
@@ -685,7 +952,14 @@ def main() -> None:
     summary["conv3x3_int8"] = k3_phase(torch, dev, rng)
 
     # ---------------------------------------------------------- turbo
-    turbo_launches, k3_step_device_ms = turbo_phase(torch, dev, cuda, frames, fixsac)
+    turbo = turbo_phase(torch, dev, cuda, frames, fixsac)
+    turbo_launches = turbo["launches"]
+
+    # ---------------------------------------------------------- serve
+    serve_launches = serve_phase(torch, cuda, turbo, frames, fixsac, rng)
+
+    # -------------------------------------------------------- rollout
+    rollout_launches = rollout_phase(torch, cuda, turbo)
 
     # ------------------------------------------------------- kernels
     sources = {"warp3": ("gaze_tpu_torch/csrc/warp.cu", "gaze_tpu/ops/pallas/warp.py:194"),
@@ -702,17 +976,19 @@ def main() -> None:
         s = summary[name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": turbo_launches[name],
-                     "launches_by_path": {"parity": launches[name], "turbo": turbo_launches[name]},
+                     "launches_by_path": {"parity": launches[name], "turbo": turbo_launches[name],
+                                          "serve": serve_launches[name],
+                                          "rollout": rollout_launches[name]},
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                      "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                      "library_ms": s["library_ms"], "per": units[name],
                      "device_ms": s["device_ms"]})
-        if name == "warp3":
+        if name in ("warp3", "conv3x3_int8"):
             rows[-1]["library_device_ms"] = s["library_device_ms"]
         if name == "tvl1_pd":
             rows[-1]["bitwise_equal"] = s["bitwise_equal"]
         if name == "conv3x3_int8":
-            rows[-1]["device_ms_in_turbo_clip"] = k3_step_device_ms
+            rows[-1]["device_ms_in_turbo_clip"] = turbo["k3_device_ms_per_step"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,18 @@
 """gaze_tpu_torch — the PyTorch/CUDA port of the gaze pipeline.
 
-The per-frame parity path of ``gaze_tpu`` (TV-L1 flow -> two-stream SP
--> onset-gated AT LSTM -> LF head -> argmax gaze) on an NVIDIA H100:
+The per-frame path of ``gaze_tpu`` (TV-L1 flow -> two-stream SP ->
+onset-gated AT LSTM -> LF head -> argmax gaze) on an NVIDIA H100, with
+its serving and evaluation surface:
 
-- ``core``    — configuration dataclasses and device resolution;
-- ``ops``     — preprocessing, image primitives, warp, TV-L1;
-- ``ops.cuda``— the hand-written Hopper kernels (built from ``csrc/``
-                with nvcc at first use, bound with ctypes);
-- ``models``  — SP, AT, LF modules, the weight bridge, the pipeline.
+- ``core``       — configuration dataclasses and device resolution;
+- ``ops``        — preprocessing, image primitives, warp, TV-L1;
+- ``ops.cuda``   — the hand-written Hopper kernels (built from ``csrc/``
+                   with nvcc at first use, bound with ctypes);
+- ``models``     — SP, AT, LF modules, the int8 streams, the decoder
+                   variants, the weight bridge, the pipeline;
+- ``evaluation`` — AAE/AUC metrics, losses, the sequential rollout;
+- ``data``       — the synthetic corpus and I-DT fixation labels;
+- ``serve``      — ``StreamServer``, the multi-stream server.
 
 Importing the package builds nothing and touches no device; entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -30,4 +35,16 @@ def __getattr__(name):
         from gaze_tpu_torch.ops.tvl1 import tvl1_flow
 
         return tvl1_flow
+    if name == "StreamServer":
+        from gaze_tpu_torch.serve import StreamServer
+
+        return StreamServer
+    if name == "rollout_eval_arrays":
+        from gaze_tpu_torch.evaluation.rollout import rollout_eval_arrays
+
+        return rollout_eval_arrays
+    if name == "compute_aae_auc":
+        from gaze_tpu_torch.evaluation.metrics import compute_aae_auc
+
+        return compute_aae_auc
     raise AttributeError(name)

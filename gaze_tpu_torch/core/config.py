@@ -104,14 +104,50 @@ class LFConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Focal-style BCE on dense heatmaps (``evaluation/losses.py``)."""
+
+    gamma: float = 2.0
+    eps: float = 1e-7
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraConfig:
+    """Camera geometry for AAE (``evaluation/metrics.py``): a pinhole
+    model with the focal length from the horizontal field of view at the
+    native capture resolution, the principal point at the image centre
+    and square pixels."""
+
+    # Native capture resolution of GTEA Gaze+ videos.
+    native_width: int = 960
+    native_height: int = 720
+    # Horizontal field of view, degrees.
+    fov_x_deg: float = 74.0
+
+    @staticmethod
+    def gtea_gaze_plus() -> "CameraConfig":
+        """GTEA Gaze+ capture geometry (the default)."""
+        return CameraConfig()
+
+    @staticmethod
+    def gtea_gaze() -> "CameraConfig":
+        """GTEA Gaze (original) capture geometry: the eye tracker's
+        640x480 scene camera."""
+        return CameraConfig(native_width=640, native_height=480, fov_x_deg=64.0)
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """Config tree of the SP -> AT -> LF inference path."""
+    """Config tree of the SP -> AT -> LF inference path and its
+    evaluation (loss, camera)."""
 
     image: ImageConfig = dataclasses.field(default_factory=ImageConfig)
     tvl1: TVL1Config = dataclasses.field(default_factory=TVL1Config)
     sp: SPConfig = dataclasses.field(default_factory=SPConfig)
     at: ATConfig = dataclasses.field(default_factory=ATConfig)
     lf: LFConfig = dataclasses.field(default_factory=LFConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
 
 
 def parity_config() -> PipelineConfig:

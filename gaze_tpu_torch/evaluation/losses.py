@@ -1,0 +1,44 @@
+"""Heatmap losses: focal BCE, plain BCE and MSE.
+
+Counterpart of ``gaze_tpu/evaluation/losses.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gaze_tpu_torch.core.config import LossConfig
+
+
+def floss(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    cfg: LossConfig | None = None,
+    sample_weight: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Focal BCE between (B, H, W) sigmoid outputs and soft targets in
+    [0, 1]: ``-t (1-p)^gamma log p - (1-t) p^gamma log(1-p)``, p clipped
+    to [eps, 1-eps]. ``sample_weight`` (B,) weighs each frame's mean
+    (0 drops it) and renormalizes over the weights' sum."""
+    cfg = cfg or LossConfig()
+    p = torch.clamp(pred, cfg.eps, 1.0 - cfg.eps)
+    t = target
+    pos = -t * ((1.0 - p) ** cfg.gamma) * torch.log(p)
+    neg = -(1.0 - t) * (p ** cfg.gamma) * torch.log(1.0 - p)
+    per_px = pos + neg
+    if sample_weight is None:
+        return torch.mean(per_px)
+    w = sample_weight.to(per_px.dtype)
+    per_frame = torch.mean(per_px, dim=(1, 2))
+    return torch.sum(per_frame * w) / (torch.sum(w) + 1e-8)
+
+
+def bce(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Plain BCE, the gamma = 0 case."""
+    p = torch.clamp(pred, eps, 1.0 - eps)
+    return torch.mean(-target * torch.log(p) - (1.0 - target) * torch.log(1.0 - p))
+
+
+def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean squared error (the AT LSTM's next-weight regression loss)."""
+    return torch.mean((pred - target) ** 2)

@@ -17,8 +17,11 @@ flow grid; production is bfloat16 activations with half-grid flow;
 turbo adds reduced TV-L1 effort and int8 VGG streams
 (``models/quant.py``). The weights live in the modules (``sp``, ``lstm``,
 ``lf``); the JAX package's ``variables`` load through
-``models/weights.py``. Options of the JAX pipeline that this port does
-not have yet raise ``NotImplementedError``.
+``models/weights.py``. The JAX pipeline's inference options are ported:
+a precomputed flow image in place of the TV-L1 solve (``flow_img``), AT
+pooling at the previous prediction (``at_pool="prediction"``) and the
+polyphase or half-resolution decoder (``decoder_impl``,
+``models/decode_fast.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 from gaze_tpu_torch.core.config import PipelineConfig
 from gaze_tpu_torch.core.device import resolve_device, set_parity_precision
+from gaze_tpu_torch.models import decode_fast
 from gaze_tpu_torch.models.at import LSTMNet, attention_map, fixation_pool
 from gaze_tpu_torch.models.lf import LateFusion
 from gaze_tpu_torch.models.quant import CONV_IMPLS, QuantSP, quant_taps, quant_vgg_forward
@@ -37,6 +41,7 @@ from gaze_tpu_torch.models.weights import StateDict, init_weights, load_state
 from gaze_tpu_torch.ops.heatmap import heatmap_argmax
 from gaze_tpu_torch.ops.image import resize_bilinear
 from gaze_tpu_torch.ops.preprocess import (
+    normalize_flow_image,
     normalize_rgb,
     prepare_temporal_input,
     resize_frames,
@@ -75,8 +80,14 @@ class GazePipeline:
         int8, the fuse/decoder tail in ``dtype``.
       quant_conv: the JAX pipeline's int8 conv choice, "xla" or
         "pallas"; both run through kernel K3 on the card.
-      at_pool, decoder_impl: the JAX pipeline's options; only their
-        default values are ported.
+      at_pool: where AT pools its channel weights when no teacher gaze
+        is given: "sp_argmax" (the current frame's saliency argmax, the
+        parity path) or "prediction" (the previous frame's final gaze,
+        ``StreamState.prev_gaze``: the model tracks its own estimate).
+      decoder_impl: the SP decoder tail: "deconv" (canonical),
+        "pixelshuffle" (exact polyphase form) or "halfres" (the last
+        block at half resolution, interleaved up); the last two fold
+        BatchNorm and serve inference only (``models/decode_fast.py``).
     """
 
     def __init__(
@@ -98,10 +109,6 @@ class GazePipeline:
             raise ValueError(f"unknown quant_conv {quant_conv!r}")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"unsupported dtype {dtype}")
-        if at_pool != "sp_argmax":
-            raise NotImplementedError("at_pool: only 'sp_argmax' is ported")
-        if decoder_impl != "deconv":
-            raise NotImplementedError("decoder_impl: only 'deconv' is ported")
         if quant_sp is not None and not isinstance(quant_sp, QuantSP):
             raise TypeError(f"quant_sp must be a models.quant.QuantSP, got {type(quant_sp)}")
         self.config = config
@@ -116,6 +123,8 @@ class GazePipeline:
         for m in self.modules().values():
             init_weights(m, gen)
             m.to(self.device).eval()
+        self.at_pool = at_pool
+        self.decoder_impl = decoder_impl
         self.quant_conv = quant_conv
         self.quant_sp = None if quant_sp is None else quant_sp.to(self.device)
         self._taps = None if quant_sp is None else {
@@ -160,12 +169,18 @@ class GazePipeline:
         are resized before the TV-L1 solve. With ``tvl1.flow_scale`` below
         1 the gray frames are resized (antialiased) to that fraction of
         the grid, solved there, and the flow is upsampled bilinearly and
-        its displacements scaled by 1 / flow_scale."""
-        if flow_img is not None:
-            raise NotImplementedError("flow_img: the flow-image input is not ported")
+        its displacements scaled by 1 / flow_scale.
+
+        ``flow_img``: optional (B, h, w, 2) uint8 precomputed flow images
+        (the dense_flow input). The TV-L1 solve is skipped and the flow is
+        treated as an image: resized bilinearly as pixels (antialiased
+        when it shrinks; the values are not rescaled), then normalized."""
         cfg = self.config
         H, W = cfg.image.height, cfg.image.width
         cur = resize_frames(to_float(cur_u8), H, W)
+        if flow_img is not None:
+            flow_in = normalize_flow_image(resize_frames(to_float(flow_img), H, W))
+            return normalize_rgb(cur, cfg.image).to(self.dtype), flow_in.to(self.dtype)
         prev = resize_frames(to_float(prev_u8), H, W)
         g0, g1 = rgb_to_gray(prev), rgb_to_gray(cur)
         s = cfg.tvl1.flow_scale
@@ -185,14 +200,25 @@ class GazePipeline:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(saliency (B, H, W), spatial conv5 (B, h, w, C)), both float32.
         With ``quant_sp`` the two streams run int8 and their float32
-        features go through the fuse/decoder tail in ``dtype``."""
-        if self.quant_sp is None:
+        features go through the fuse/decoder tail in ``dtype``; the tail
+        is ``decoder_impl``'s."""
+        if self.quant_sp is not None:
+            feat = quant_vgg_forward(self.quant_sp.spatial, rgb_in, self.quant_conv,
+                                     self._taps["spatial"])
+            f_temporal = quant_vgg_forward(self.quant_sp.temporal, flow_in, self.quant_conv,
+                                           self._taps["temporal"])
+        elif self.decoder_impl == "deconv":
             return self.sp(rgb_in, flow_in)
-        feat = quant_vgg_forward(self.quant_sp.spatial, rgb_in, self.quant_conv,
-                                 self._taps["spatial"])
-        f_temporal = quant_vgg_forward(self.quant_sp.temporal, flow_in, self.quant_conv,
-                                       self._taps["temporal"])
-        sal = self.sp.fuse_decode(feat.to(self.dtype), f_temporal.to(self.dtype))
+        else:
+            feat, f_temporal = self.sp.encode(rgb_in, flow_in)
+            feat = feat.float()
+        dt = self.dtype
+        if self.decoder_impl == "pixelshuffle":
+            sal = decode_fast.fast_fuse_decode(self.sp, feat.to(dt), f_temporal.to(dt), dt)
+        elif self.decoder_impl == "halfres":
+            sal = decode_fast.halfres_fuse_decode(self.sp, feat.to(dt), f_temporal.to(dt), dt)
+        else:
+            sal = self.sp.fuse_decode(feat.to(dt), f_temporal.to(dt))
         return sal, feat
 
     # ---------------------------------------------------------- step ----
@@ -206,7 +232,12 @@ class GazePipeline:
     ) -> Tuple[StreamState, Dict[str, torch.Tensor]]:
         """The AT + LF part of :meth:`step`, from SP's outputs on."""
         cfg = self.config
-        pool_pt = heatmap_argmax(sal) if gaze_xy is None else gaze_xy
+        if gaze_xy is not None:
+            pool_pt = gaze_xy
+        elif self.at_pool == "prediction":
+            pool_pt = state.prev_gaze
+        else:
+            pool_pt = heatmap_argmax(sal)
         w = fixation_pool(feat, pool_pt, cfg.at)
         new_carries, w_pred = self.lstm.step(state.carries, w)
         # The AT LSTM steps once per fixation ONSET, not on every frame
@@ -242,7 +273,8 @@ class GazePipeline:
           fixation: (B,) 1.0 where frame t is a fixation.
           gaze_xy: optional (B, 2) teacher gaze to pool at instead of the
             saliency argmax.
-          flow_img: not ported; raises.
+          flow_img: optional (B, h, w, 2) uint8 precomputed flow image in
+            place of the TV-L1 solve (see :meth:`preprocess_pair`).
 
         Returns:
           (new_state, outputs): saliency, attention and final heatmaps
@@ -252,6 +284,8 @@ class GazePipeline:
         fixation = torch.as_tensor(fixation, dtype=torch.float32, device=dev)
         if gaze_xy is not None:
             gaze_xy = torch.as_tensor(gaze_xy, dtype=torch.float32, device=dev)
+        if flow_img is not None:
+            flow_img = torch.as_tensor(flow_img, device=dev)
         rgb_in, flow_in = self.preprocess_pair(
             torch.as_tensor(prev_u8, device=dev), torch.as_tensor(cur_u8, device=dev), flow_img
         )

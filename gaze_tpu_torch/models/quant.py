@@ -303,8 +303,9 @@ def calibrate_pipeline_sp(
     preprocessing (resize, normalize, TV-L1 at its flow scale, cast to its
     dtype), so the scales see the serving input distribution.
 
-    frame_pairs: (prev_u8, cur_u8) or (prev_u8, cur_u8, None) (B, H, W, 3)
-    arrays; a flow image raises, as the flow-image input is not ported.
+    frame_pairs: (prev_u8, cur_u8) or (prev_u8, cur_u8, flow_img_u8 or
+    None): (B, H, W, 3) frames and an optional (B, h, w, 2) precomputed
+    flow image, which takes the TV-L1 solve's place as in ``step``.
     """
     if quant_tail:
         raise NotImplementedError("quant tail: the int8 fuse/decoder tail is not ported")
@@ -315,6 +316,8 @@ def calibrate_pipeline_sp(
     flow_b: List[torch.Tensor] = []
     for pair in frame_pairs:
         fl = pair[2] if len(pair) > 2 else None
+        if fl is not None:
+            fl = torch.as_tensor(fl, device=dev)
         r, f = pipeline.preprocess_pair(
             torch.as_tensor(pair[0], device=dev), torch.as_tensor(pair[1], device=dev), fl)
         rgb_b.append(r.float())

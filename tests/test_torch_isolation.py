@@ -24,6 +24,7 @@ import torch
 
 from gaze_tpu.core import config as jconfig
 from gaze_tpu_torch.core import config as tconfig
+from gaze_tpu_torch.evaluation.rollout import make_rollout_chunk_fn, rollout_eval_arrays
 from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
 from gaze_tpu_torch.models.quant import QuantSP, calibrate_pipeline_sp
 from gaze_tpu_torch.ops import cuda
@@ -33,6 +34,8 @@ from gaze_tpu_torch.ops.cuda.tvl1_pd import pd_iterations, pd_iterations_plain
 from gaze_tpu_torch.ops.cuda.warp import warp3
 from gaze_tpu_torch.ops.tvl1 import tvl1_flow
 from gaze_tpu_torch.ops.warp import warp3_plain
+from gaze_tpu_torch.serve import StreamServer
+from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gaze_tpu")
@@ -90,6 +93,16 @@ def test_fresh_interpreter_runs_a_cpu_step_without_jax():
         pipe = gaze_tpu_torch.GazePipeline(cfg, dtype=torch.bfloat16, device="cpu", quant_sp=qsp)
         hm, gaze = gaze_tpu_torch.run_clip(pipe, frames, np.ones((1, 3), np.float32))
         assert hm.shape == (1, 2, 32, 32) and bool(torch.isfinite(hm).all())
+        # the serving and evaluation surface: two server ticks, a rollout
+        srv = gaze_tpu_torch.StreamServer(cfg, pipe.state_dicts(), 2, dtype=torch.bfloat16,
+                                          quant_sp=qsp, device="cpu")
+        srv.attach(0)
+        srv.tick(frames[0, :2])
+        out = srv.tick(frames[0, 1:3])
+        assert (out["gaze"][0] >= 0).all() and (out["gaze"][1] == -1).all()
+        s = gaze_tpu_torch.rollout_eval_arrays(pipe, frames, np.zeros((1, 3, 2), np.float32),
+                                               np.ones((1, 3), np.float32), chunk_len=2)
+        assert s[2].tolist() == [2.0] and np.isfinite(s[0]).all()
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "gaze_tpu"))
         print("LOADED", loaded)
@@ -120,6 +133,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         tvl1_flow(z, z)
     pipe = GazePipeline(tiny_config(), device="cpu")
     assert pipe.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamServer(tiny_config(), pipe.state_dicts(), 2)
     frames = np.zeros((1, 2, 32, 32, 3), np.uint8)
     hm, _ = run_clip(pipe, frames, np.ones((1, 2), np.float32))
     assert hm.device.type == "cpu"
@@ -127,42 +142,54 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 @pytest.mark.parametrize("kwargs", [
     dict(quant_tail=True),
-    dict(at_pool="prediction"),
-    dict(decoder_impl="pixelshuffle"),
-    dict(decoder_impl="halfres"),
+    dict(server_mesh=True),
+    dict(rollout_mesh=True),
+    dict(rollout_chunk_fn_mesh=True),
     dict(calibrate_quant_tail=True),
-    dict(calibrate_flow_img=True),
 ])
 def test_unported_options_raise(kwargs):
-    """bf16, the half-grid flow and ``quant_sp`` are ported; the int8
-    tail, the other AT pooling and decoders, and the flow-image input
-    are not."""
+    """bf16, the half-grid flow, ``quant_sp``, the flow-image input, both
+    AT poolings and all three decoders are ported (held against JAX in
+    ``test_torch_options.py``); the int8 tail and the sharded server and
+    rollout are not."""
     pipe = GazePipeline(tiny_config(), device="cpu")
-    f = np.zeros((1, 32, 32, 3), np.uint8)
+    f = np.zeros((1, 2, 32, 32, 3), np.uint8)
+    (what,) = kwargs
     with pytest.raises(NotImplementedError):
-        if kwargs.pop("quant_tail", False):
+        if what == "quant_tail":
             QuantSP(None, None, tail=object())
-        elif kwargs.pop("calibrate_quant_tail", False):
-            calibrate_pipeline_sp(pipe, [(f, f)], quant_tail=True)
-        elif kwargs.pop("calibrate_flow_img", False):
-            calibrate_pipeline_sp(pipe, [(f, f, np.zeros((1, 32, 32, 2), np.uint8))])
+        elif what == "calibrate_quant_tail":
+            calibrate_pipeline_sp(pipe, [(f[:, 0], f[:, 1])], quant_tail=True)
+        elif what == "server_mesh":
+            StreamServer(tiny_config(), pipe.state_dicts(), 2, device="cpu", mesh=object())
+        elif what == "rollout_mesh":
+            rollout_eval_arrays(pipe, f, np.zeros((1, 2, 2)), np.ones((1, 2)), mesh=object())
         else:
-            GazePipeline(tiny_config(), device="cpu", **kwargs)
+            make_rollout_chunk_fn(pipe, mesh=object())
 
 
 def test_unknown_options_and_flow_img_raise():
     with pytest.raises(ValueError):
         GazePipeline(tiny_config(), device="cpu", at_pool="nearest")
     with pytest.raises(ValueError):
+        GazePipeline(tiny_config(), device="cpu", decoder_impl="bilinear")
+    with pytest.raises(ValueError):
         GazePipeline(tiny_config(), device="cpu", quant_conv="cudnn")
     with pytest.raises(ValueError):
         GazePipeline(tiny_config(), device="cpu", dtype=torch.float16)
     with pytest.raises(TypeError):
         GazePipeline(tiny_config(), device="cpu", quant_sp=object())
+    # a rollout chunk function takes flow images only if it was made for them
     pipe = GazePipeline(tiny_config(), device="cpu")
-    f = np.zeros((1, 32, 32, 3), np.uint8)
-    with pytest.raises(NotImplementedError):
-        pipe.step(pipe.init_state(1), f, f, np.ones(1), flow_img=np.zeros((1, 32, 32, 2)))
+    f = torch.zeros((1, 1, 32, 32, 3), dtype=torch.uint8)
+    z = torch.zeros((1, 1))
+    chunk = make_rollout_chunk_fn(pipe, with_flow=False)
+    with pytest.raises(ValueError):
+        chunk(pipe.init_state(1), f[:, 0], f, z, torch.zeros((1, 1, 2)), z,
+              flow_img=torch.zeros((1, 1, 32, 32, 2), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        make_rollout_chunk_fn(pipe, with_flow=True)(pipe.init_state(1), f[:, 0], f, z,
+                                                    torch.zeros((1, 1, 2)), z)
 
 
 def fields(n, shape=(2, 18, 22), seed=0):
@@ -261,15 +288,21 @@ def test_wrappers_refuse_bad_inputs(bad):
 
 
 @pytest.mark.parametrize("name", ["ImageConfig", "TVL1Config", "SPConfig", "ATConfig",
-                                  "LFConfig", "PipelineConfig"])
+                                  "LFConfig", "LossConfig", "CameraConfig", "PipelineConfig"])
 def test_config_copy_matches_the_jax_defaults(name):
     ours, theirs = getattr(tconfig, name)(), getattr(jconfig, name)()
     ours_fields = {f.name for f in dataclasses.fields(ours)}
     theirs_fields = {f.name for f in dataclasses.fields(theirs)}
     if name == "PipelineConfig":
-        # the port's tree holds the inference sections only
-        assert ours_fields == {"image", "tvl1", "sp", "at", "lf"} <= theirs_fields
-    else:
+        # the port's tree holds the inference and evaluation sections;
+        # train and mesh wait for the training slice
+        assert ours_fields == {"image", "tvl1", "sp", "at", "lf", "loss", "camera"}
+        assert ours_fields <= theirs_fields
+    elif name == "CameraConfig":
+        for geometry in ("gtea_gaze_plus", "gtea_gaze"):
+            assert (dataclasses.asdict(getattr(tconfig.CameraConfig, geometry)())
+                    == dataclasses.asdict(getattr(jconfig.CameraConfig, geometry)()))
+    if name != "PipelineConfig":
         assert ours_fields == theirs_fields
     for k in ours_fields:
         a, b = getattr(ours, k), getattr(theirs, k)

@@ -39,6 +39,7 @@ from gaze_tpu_torch.ops.cuda.tvl1_pd import pd_iterations, pd_iterations_plain
 from gaze_tpu_torch.ops.image import median3x3
 from tests.test_pallas_pd import scan_reference  # the scan body of ops/tvl1.py:131-159
 from tests.test_torch_ops import pd_inputs, t
+from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("passes", [0, 1, 2])

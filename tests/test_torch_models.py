@@ -35,6 +35,7 @@ from gaze_tpu_torch.models.weights import (
     sp_to_torch_state,
     torch_state_from_jax,
 )
+from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
 
 NARROW = dict(
     image=dict(height=64, width=64, heatmap_sigma=8.0),

@@ -28,6 +28,7 @@ from gaze_tpu_torch.core.config import ImageConfig, TVL1Config
 from gaze_tpu_torch.ops import heatmap, image, preprocess, tvl1, warp
 from gaze_tpu_torch.ops.cuda.tvl1_pd import pd_iterations_plain
 from tests.test_pallas_pd import scan_reference  # the scan body of ops/tvl1.py:131-159
+from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
 
 
 def t(x):

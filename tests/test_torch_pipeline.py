@@ -35,6 +35,7 @@ from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
 from gaze_tpu_torch.models.weights import torch_state_from_jax
 from gaze_tpu_torch.ops.heatmap import heatmap_argmax
 from tests.test_torch_models import jax_variables, make_configs
+from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
 
 GOLDEN_TOL = 1e-5
 FLOW_IN_BAND = 2e-4

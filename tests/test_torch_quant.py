@@ -64,6 +64,7 @@ from gaze_tpu_torch.ops.cuda.conv_int8 import conv3x3_int8
 from gaze_tpu_torch.ops.heatmap import heatmap_argmax
 from tests.test_pallas_conv_int8 import _make_layers, _xla_reference
 from tests.test_torch_pipeline import port_config
+from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
 
 GOLDEN_TOL = 5e-3
 SCALE_RTOL = 1e-6

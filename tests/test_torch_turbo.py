@@ -42,6 +42,7 @@ from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
 from gaze_tpu_torch.models.quant_io import quant_sp_from_numpy
 from gaze_tpu_torch.models.weights import lf_to_torch_state, load_state, torch_state_from_jax
 from tests.test_torch_models import jax_variables, make_configs, t
+from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
 
 FLOW_IN_BF16_BAND = 2.0**-6
 BF16_BAND = 5e-3
