@@ -32,6 +32,29 @@ pipeline's weights and calibration:
   (one with 3 untracked frames) at chunk lengths 8 and 16, whose sums
   must be equal, and a CPU run of one video's first 5 frames.
 
+Then the three training stages at full width on the parity preset (f32,
+TF32 off), weights from ``torch.Generator`` seeds, data from the port's
+synthetic corpus:
+
+- train_sp: ``make_sp_train_step`` at B=8, a warm-up step in which every
+  K1 and K2 call is also run through its plain version (bit-equal, no
+  input requiring grad), 5 timed steps (exactly 20 K1 and 20 K2 launches
+  each), one profiled; a step with ``remat="encoders"`` (lower peak,
+  gradients within a band of "none"'s); 3 production-preset steps (bf16,
+  15 and 15 launches); and the first step at B=2 held to the CPU, (a) on
+  the card's preprocessed inputs and (b) whole, flow included;
+- train_at: fixation weights extracted with the trained SP over 4
+  synthetic videos (20 and 20 launches per extract batch), TBPTT for 2
+  epochs with stateful validation, and the carry threaded through
+  consecutive windows against one rollout of the whole sequence;
+- train_lf: 4 teacher-forced steps at B=8, a rollout step over 2 clips of
+  4 frames, the eval step, a checkpoint round trip and the resume check
+  (2 steps + save + restore + 2 steps = 4 steps, bit for bit, with cuDNN
+  deterministic);
+- stages: ``run_train_sp`` -> ``run_train_lstm`` -> ``run_train_late``,
+  1 epoch of 2 steps at B=4, into a temporary directory removed
+  afterwards, then a rollout evaluation of the restored best weights.
+
 Each path runs with the launch counters set to 0 just before it and read
 just after, and must have launched each of its kernels as often as its
 configuration says (the server per tick). A short CPU run of each clip
@@ -45,6 +68,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -100,6 +124,30 @@ ROLL_V, ROLL_T, ROLL_UNTRACKED, ROLL_CHUNKS = 8, 17, (3, 5, 8), (8, 16)
 ROLL_CPU_FRAMES = 5         # video 0's first frames, on the CPU too
 ROLL_AAE_TOL = 1e-3         # degrees per frame, float32 ray arithmetic
 ROLL_AUC_TOL = 1e-6         # per frame, float32 rounding of the score
+# The training phases, at full width on the parity preset (f32, TF32 off):
+# SP steps at B=8 (a warm-up with every K1/K2 call held to its plain
+# version, 5 timed, one profiled); the first step at B=2 on the CPU too.
+TRAIN_B, TRAIN_CPU_B, TRAIN_STEPS, TRAIN_LR = 8, 2, 5, 1e-4
+# Card vs CPU on the same preprocessed inputs (cuDNN and the CPU's convs
+# sum float32 products in other orders, through 13 VGG layers and the
+# decoder, forward and backward): loss relative, the gradients' whole-model
+# relative L2 difference (grad_compare says why not elementwise; measured
+# 1.1e-3 on an H100, the loss 9e-8, so the backward carries the rounding
+# differences of cuDNN's backward algorithms), BN statistics relative
+# (|d| / (|ref| + 1e-3)). Parameters after the step within 2 lr: Adam's
+# first step is a sign test, and an element whose gradient lies in the
+# noise moves by +-lr on either side.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_STATS_RTOL = 1e-4, 1e-2, 1e-4
+REMAT_GRAD_RTOL = 1e-3      # remat="encoders" vs "none" on the card, relative L2
+# AT: fixation weights of 4 synthetic videos of 97 frames (about 9
+# fixations each), TBPTT windows of 8, 2 epochs.
+AT_VIDEOS, AT_FRAMES, AT_SEED, AT_SEQ_LEN, AT_EPOCHS = 4, 97, 100, 8, 2
+AT_THREAD_TOL = 1e-5        # threaded windows vs one rollout
+# LF: 4 teacher-forced steps at B=8, one rollout step over 2 clips of 4.
+LF_STEPS, LF_CLIPS, LF_T = 4, 2, 4
+# The trainer: 1 epoch of 2 steps at B=4 per stage, then a rollout of 2
+# videos of 9 frames with the restored best weights.
+STAGE_B, STAGE_STEPS, STAGE_ROLL_T = 4, 2, 9
 
 
 def fail(msg: str) -> None:
@@ -136,25 +184,30 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, tries: int = 3):
     """Run ``fn`` once under ``torch.profiler``. Returns the host wall
     seconds and, per device kernel name, (device µs summed, launches) from
     the CUPTI trace. The CUDA-event times above include the wrapper's host
-    cost when the host enqueues slower than the card runs; these do not."""
+    cost when the host enqueues slower than the card runs; these do not.
+    A trace that comes back without device events (seen once in a few
+    hundred traces on the card) is taken again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        if by_name:
+            break
     return wall, by_name
 
 
@@ -668,6 +721,602 @@ def rollout_phase(torch, cuda, turbo):
     return launches
 
 
+# ------------------------------------------------------------ training ----
+def k2_plain(args, kw, passes):
+    """K2's plain version: the iterations, then the median passes."""
+    from gaze_tpu_torch.ops.cuda.tvl1_pd import pd_iterations_plain
+    from gaze_tpu_torch.ops.image import median3x3
+
+    out = pd_iterations_plain(*args, **kw)
+    f1, f2 = out[:2]
+    for _ in range(passes):
+        f1, f2 = median3x3(f1), median3x3(f2)
+    return (f1, f2, *out[2:])
+
+
+class CheckedKernels:
+    """While active, every K1 and K2 call that TV-L1 makes also runs the
+    kernel's plain version on the same inputs (on the card, launching
+    nothing) and records whether the two agree bit for bit and their
+    largest difference."""
+
+    def __init__(self, torch):
+        from gaze_tpu_torch.ops.cuda import tvl1_pd, warp
+        from gaze_tpu_torch.ops.warp import warp3_plain
+
+        self.torch, self.warp, self.pd = torch, warp, tvl1_pd
+        self.orig = (warp.warp3, tvl1_pd.pd_iterations)
+        self.warp3_plain = warp3_plain
+        self.calls = {"warp3": 0, "tvl1_pd": 0}
+        self.equal = {"warp3": True, "tvl1_pd": True}
+        self.err = {"warp3": 0.0, "tvl1_pd": 0.0}
+        self.grad_inputs = 0
+
+    def _note(self, name, got, ref, args):
+        self.calls[name] += 1
+        self.grad_inputs += sum(bool(a.requires_grad) for a in args)
+        self.equal[name] &= all(self.torch.equal(g, r) for g, r in zip(got, ref))
+        self.err[name] = max(self.err[name], max(float((g - r).abs().max())
+                                                 for g, r in zip(got, ref)))
+
+    def __enter__(self):
+        warp3, pd = self.orig
+
+        def checked_warp3(*args):
+            got = warp3(*args)
+            self._note("warp3", got, self.warp3_plain(*args), args)
+            return got
+
+        def checked_pd(*args, median_passes=0, **kw):
+            got = pd(*args, median_passes=median_passes, **kw)
+            self._note("tvl1_pd", got, k2_plain(args, kw, median_passes), args)
+            return got
+
+        self.warp.warp3, self.pd.pd_iterations = checked_warp3, checked_pd
+        return self
+
+    def __exit__(self, *exc):
+        self.warp.warp3, self.pd.pd_iterations = self.orig
+        return False
+
+    def check(self, where, per_call_kernels):
+        """Fail unless every checked call was bit-equal and saw no tensor
+        that requires grad; ``per_call_kernels`` the calls expected."""
+        if self.calls != per_call_kernels:
+            fail(f"{where}: checked kernel calls {self.calls}, expected {per_call_kernels}")
+        if self.grad_inputs:
+            fail(f"{where}: {self.grad_inputs} kernel inputs required grad")
+        if not all(self.equal.values()):
+            fail(f"{where}: kernels differ from their plain versions inside the step: "
+                 f"max abs {self.err}")
+        return {"bitwise_equal": True, "max_abs_err": dict(self.err)}
+
+
+def launch_counts(cuda):
+    return {k: v.launches for k, v in cuda.kernels().items()}
+
+
+def flow_launches(cfg, steps: int):
+    """K1/K2 launches of ``steps`` preprocess_pair calls: one K1 and one
+    K2 per (level, warp) of the solve's grid."""
+    from gaze_tpu_torch.ops.tvl1 import _pyramid_shapes
+
+    t1 = cfg.tvl1
+    fh = int(round(cfg.image.height * t1.flow_scale))
+    fw = int(round(cfg.image.width * t1.flow_scale))
+    n = len(_pyramid_shapes(fh, fw, t1.pyramid_levels, t1.pyramid_factor)) * t1.warps * steps
+    return {"warp3": n, "tvl1_pd": n, "conv3x3_int8": 0}
+
+
+def sp_batches(cfg, batch: int, n: int, seed: int = 0):
+    """n SP batches of the port's synthetic corpus at the config's grid."""
+    from gaze_tpu_torch.data.synthetic import SyntheticSpec, batch_iterator
+
+    spec = SyntheticSpec(num_frames=64, height=cfg.image.height, width=cfg.image.width,
+                         seed=seed)
+    return list(batch_iterator(spec, batch, n, seed=seed))
+
+
+def grad_compare(got, want, names):
+    """Gradients of the same step from two runs. Returns the whole
+    model's relative L2 difference ``|got - want| / |want|`` (the checked
+    number), each tensor's relative Frobenius difference (the five
+    largest, by name) and the largest elementwise difference over its
+    tensor's largest value. A ReLU whose input lies within rounding of 0
+    can switch on one side and not the other; that switches one term of
+    a weight gradient's sum (conv5_3's sums over B x 14 x 14 positions),
+    so single elements may differ by far more than the model's gradient
+    does."""
+    got = [g.detach().float().cpu() for g in got]
+    want = [w.detach().float().cpu() for w in want]
+    diff2 = sum(float(((g - w) ** 2).sum()) for g, w in zip(got, want))
+    ref2 = sum(float((w ** 2).sum()) for w in want)
+    fro = sorted(((float((g - w).norm() / max(float(w.norm()), 1e-30)), n)
+                  for g, w, n in zip(got, want, names)), reverse=True)[:5]
+    elem = max((float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30), n)
+               for g, w, n in zip(got, want, names))
+    return {"model_rel_l2": (diff2 / ref2) ** 0.5,
+            "tensor_rel_fro_top5": [[n, e] for e, n in fro],
+            "elem_rel_max": [elem[1], elem[0]]}
+
+
+def params_max_diff(a, b, names):
+    sa, sb = a.state_dict(), b.state_dict()
+    return max(float((sa[n].cpu() - sb[n].cpu()).abs().max()) for n in names)
+
+
+def stats_rel_err(a, b):
+    return max(float(((a[k].cpu() - b[k].cpu()).abs() / (b[k].cpu().abs() + 1e-3)).max())
+               for k in a)
+
+
+def train_sp_phase(torch, cuda):
+    """The SP stage's train step at full width on the parity preset (f32,
+    TF32 off, TV-L1 at 224²): B=8 timed, a step with remat="encoders",
+    three production-preset steps, and the first step at B=2 held to the
+    CPU. Returns the trained SP state dict and the launch counts."""
+    from gaze_tpu_torch.core.config import parity_config, preset_config
+    from gaze_tpu_torch.models.pipeline import GazePipeline
+    from gaze_tpu_torch.train.common import (make_optimizer, make_state,
+                                             microbatch_value_and_grad, to_device)
+    from gaze_tpu_torch.train.sp import create_sp_state, make_sp_train_step, sp_loss
+
+    cfg = dataclasses.replace(parity_config(), train=dataclasses.replace(
+        parity_config().train, batch_size=TRAIN_B, learning_rate=TRAIN_LR))
+    per_step = flow_launches(cfg, 1)
+    batches = sp_batches(cfg, TRAIN_B, TRAIN_STEPS + 2)
+    pipe = GazePipeline(cfg, seed=0)
+    state = create_sp_state(pipe)
+    init = {k: v.detach().cpu().clone() for k, v in pipe.sp.state_dict().items()}
+    step = make_sp_train_step(pipe)
+
+    # (a) and (b): the first step at B=2 on the card and on the CPU from
+    # the same weights and batch
+    def fresh(p):
+        p.sp.load_state_dict(init)
+        return make_state(p.sp, make_optimizer(cfg.train))
+
+    small = {k: v[:TRAIN_CPU_B] for k, v in batches[0].items()}
+    cpu = GazePipeline(cfg, device="cpu", seed=0)
+    cpu_state = fresh(cpu)
+    card = to_device(small, pipe.device)
+    cpu_small = to_device(small, cpu.device)
+    rgb_in, flow_in = pipe.preprocess_pair(card["prev"], card["cur"])
+
+    def on_inputs(p, st, rgb, flow, mb):
+        (loss, stats), g = microbatch_value_and_grad(
+            lambda m: sp_loss(p, rgb, flow, m), st.params, mb, 1)
+        return loss, stats, g
+
+    loss_g, stats_g, grads_g = on_inputs(pipe, state, rgb_in, flow_in, card)
+    flow_leaf = flow_in.clone().requires_grad_()
+    g_flow = torch.autograd.grad(sp_loss(pipe, rgb_in, flow_leaf, card)[0], flow_leaf)[0]
+    t0 = time.perf_counter()
+    loss_c, stats_c, grads_c = on_inputs(cpu, cpu_state, rgb_in.cpu(), flow_in.cpu(), cpu_small)
+    cpu_a_s = time.perf_counter() - t0
+    a = {"loss_rel_err": abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))}
+    a["grads"] = grad_compare(grads_g, grads_c, state.param_names)
+    a.update({
+              "batch_stats_rel_err": stats_rel_err(stats_g, stats_c)})
+    state.apply_gradients(grads_g, stats_g)
+    cpu_state.apply_gradients(grads_c, stats_c)
+    a["params_max_abs_diff"] = params_max_diff(pipe.sp, cpu.sp, state.param_names)
+    del grads_g, grads_c
+    # (b) the whole step, flow included, from the same initial state
+    state, cpu_state = fresh(pipe), fresh(cpu)
+    _, flow_c = cpu.preprocess_pair(cpu_small["prev"], cpu_small["cur"])
+    d_flow = float((flow_in.cpu() - flow_c).abs().max())
+    state, m_g = make_sp_train_step(pipe)(state, small)
+    t0 = time.perf_counter()
+    cpu_state, m_c = make_sp_train_step(cpu)(cpu_state, small)
+    cpu_b_s = time.perf_counter() - t0
+    # first order: |dL| <= sum |dL/dflow_in| * max |d flow_in|; twice that
+    loss_band = TRAIN_LOSS_RTOL * abs(float(m_c["loss"])) + 2 * float(g_flow.abs().sum()) * d_flow
+    b = {"flow_in_max_diff": d_flow, "loss_diff": abs(float(m_g["loss"]) - float(m_c["loss"])),
+         "loss_band": loss_band,
+         "params_max_abs_diff": params_max_diff(pipe.sp, cpu.sp, state.param_names),
+         "batch_stats_rel_err": stats_rel_err(state.batch_stats(), cpu_state.batch_stats())}
+    del cpu, cpu_state
+
+    # B=8 from the initial weights: a warm-up step with every K1 and K2
+    # call held to its plain version, then the timed steps
+    state = fresh(pipe)
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    with CheckedKernels(torch) as chk:
+        state, m = step(state, batches[0])
+        torch.cuda.synchronize()
+    inside = chk.check("train_sp", {"warp3": per_step["warp3"], "tvl1_pd": per_step["tvl1_pd"]})
+    losses, walls, step_launches = [float(m["loss"])], [], [launch_counts(cuda)]
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[1 + i])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        step_launches.append(launch_counts(cuda))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    for n, got in enumerate(step_launches):
+        if got != per_step:
+            fail(f"train_sp: step {n} launched {got}, expected {per_step}")
+    main_launches = {k: sum(c[k] for c in step_launches) for k in per_step}
+    if not all(np.isfinite(losses)):
+        fail(f"train_sp: non-finite losses {losses}")
+    _, prof = device_profile(torch, lambda: step(state, batches[TRAIN_STEPS + 1]))
+    busy = busy_ms(prof)
+    wall_ms = float(np.median(walls)) * 1e3
+    top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:6]
+
+    # one more step with remat="encoders" from the same weights: its
+    # gradients against none's, and each step's peak above what was
+    # allocated before it
+    rcfg = dataclasses.replace(cfg, sp=dataclasses.replace(cfg.sp, remat="encoders"))
+    rpipe = GazePipeline(rcfg, seed=0)
+    rstate = create_sp_state(rpipe)
+    rpipe.sp.load_state_dict(pipe.sp.state_dict())
+    rb = to_device(batches[0], pipe.device)
+
+    def grads_of(p, st):
+        return microbatch_value_and_grad(
+            lambda mb: sp_loss(p, *p.preprocess_pair(mb["prev"], mb["cur"]), mb),
+            st.params, rb, 1)
+
+    remat = grad_compare(grads_of(rpipe, rstate)[1], grads_of(pipe, state)[1],
+                         state.param_names)
+    peaks = {}
+    for name, p, st in (("none", pipe, state), ("encoders", rpipe, rstate)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (_, stats), g = grads_of(p, st)
+        st.apply_gradients(g, stats)
+        del g
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+    del rpipe, rstate
+
+    # three steps of the production preset (bf16, half-grid flow)
+    pcfg = dataclasses.replace(preset_config("production"), train=cfg.train)
+    p_per_step = flow_launches(pcfg, 1)
+    ppipe = GazePipeline(pcfg, dtype=torch.bfloat16, seed=0)
+    pstate = create_sp_state(ppipe)
+    pstep = make_sp_train_step(ppipe)
+    pstate, _ = pstep(pstate, batches[0])      # warm-up
+    p_walls, p_losses = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        pstate, m = pstep(pstate, batches[1 + i])
+        torch.cuda.synchronize()
+        p_walls.append(time.perf_counter() - t0)
+        p_losses.append(float(m["loss"]))
+        if launch_counts(cuda) != p_per_step:
+            fail(f"train_sp production: step {i + 1} launched {launch_counts(cuda)}, "
+                 f"expected {p_per_step}")
+    del ppipe, pstate
+
+    emit("train_sp", preset="parity", batch=TRAIN_B, size=SIZE, lr=TRAIN_LR,
+         steps_timed=TRAIN_STEPS, step_wall_ms=[w * 1e3 for w in walls],
+         step_wall_ms_median=wall_ms, step_wall_ms_p90=float(np.percentile(walls, 90)) * 1e3,
+         step_device_busy_ms=busy, device_idle_share=1 - busy / wall_ms,
+         samples_per_s=TRAIN_B / (wall_ms / 1e3), peak_mem_bytes=peak, losses=losses,
+         launches_per_step=per_step, launches=main_launches, kernels_inside_step=inside,
+         top_kernels=[{"name": k[:90], "ms": v[0] / 1e3, "launches": v[1]} for k, v in top],
+         remat_encoders={"step_peak_bytes": peaks["encoders"], "none_step_peak_bytes":
+                         peaks["none"], "grads": remat, "tol": REMAT_GRAD_RTOL},
+         production={"batch": TRAIN_B, "dtype": "bfloat16", "flow_grid": SIZE // 2,
+                     "step_wall_ms": [w * 1e3 for w in p_walls], "losses": p_losses,
+                     "launches_per_step": p_per_step},
+         cpu_first_step={"batch": TRAIN_CPU_B, "a_same_inputs": a, "b_whole_step": b,
+                         "a_cpu_s": cpu_a_s, "b_cpu_s": cpu_b_s,
+                         "tol": {"loss_rel": TRAIN_LOSS_RTOL, "grad_rel": TRAIN_GRAD_RTOL,
+                                 "batch_stats_rel": TRAIN_STATS_RTOL,
+                                 "params_abs": 2 * TRAIN_LR + 1e-6}})
+    if not peaks["encoders"] < peaks["none"]:
+        fail(f"train_sp: remat=encoders peak {peaks['encoders']} not below none's {peaks['none']}")
+    if not remat["model_rel_l2"] <= REMAT_GRAD_RTOL:
+        fail(f"train_sp: remat gradients {remat} from none's > {REMAT_GRAD_RTOL}")
+    if not all(np.isfinite(p_losses)):
+        fail(f"train_sp production: non-finite losses {p_losses}")
+    if not (a["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and a["grads"]["model_rel_l2"] <= TRAIN_GRAD_RTOL
+            and a["batch_stats_rel_err"] <= TRAIN_STATS_RTOL
+            and a["params_max_abs_diff"] <= 2 * TRAIN_LR + 1e-6):
+        fail(f"train_sp: card vs CPU on the same inputs outside the bands: {a}")
+    if not (b["loss_diff"] <= b["loss_band"] and b["params_max_abs_diff"] <= 2 * TRAIN_LR + 1e-6):
+        fail(f"train_sp: card vs CPU whole step outside the bands: {b}")
+    return {k: v.detach().clone() for k, v in pipe.sp.state_dict().items()}, main_launches
+
+
+def train_at_phase(torch, cuda, sp_state):
+    """AT at full width: fixation weights extracted with the trained SP
+    over synthetic videos (exact K1/K2 launches per extract batch), then
+    TBPTT for 2 epochs with stateful validation, and the carry threaded
+    through consecutive windows against one rollout of the whole
+    sequence. Returns the AT state dict and the launch counts."""
+    from gaze_tpu_torch.core.config import parity_config
+    from gaze_tpu_torch.data.synthetic import SyntheticSpec, generate_sequence
+    from gaze_tpu_torch.models.pipeline import GazePipeline
+    from gaze_tpu_torch.train.at import (build_tbptt_schedule, create_at_state,
+                                         fixation_onset_weights, make_at_stateful_eval,
+                                         make_at_tbptt_step, split_at_validation)
+    from gaze_tpu_torch.train.sp import extract_fixation_weights
+
+    cfg = dataclasses.replace(parity_config(), train=dataclasses.replace(
+        parity_config().train, batch_size=TRAIN_B, learning_rate=TRAIN_LR))
+    per_batch = flow_launches(cfg, 1)
+    pipe = GazePipeline(cfg, seed=0)
+    dev = pipe.device
+    extract = extract_fixation_weights(pipe, sp_state)
+    video_w, n_batches, extract_s = [], 0, 0.0
+    for v in range(AT_VIDEOS):
+        frames, gaze, fixsac = generate_sequence(SyntheticSpec(
+            num_frames=AT_FRAMES, height=SIZE, width=SIZE, seed=AT_SEED + v))
+        ws = []
+        for s in range(1, len(frames), TRAIN_B):
+            idx = np.arange(s, min(s + TRAIN_B, len(frames)))
+            torch.cuda.synchronize()
+            cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            ws.append(extract({"prev": frames[idx - 1], "cur": frames[idx],
+                               "gaze": gaze[idx]}).cpu().numpy())
+            extract_s += time.perf_counter() - t0
+            if launch_counts(cuda) != per_batch:
+                fail(f"train_at: extract batch {n_batches} launched {launch_counts(cuda)}, "
+                     f"expected {per_batch}")
+            n_batches += 1
+        video_w.append(fixation_onset_weights(np.concatenate(ws), fixsac[1:]))
+    fixations = [len(w) for w in video_w]
+    if min(fixations) < 3 or not all(np.isfinite(w).all() for w in video_w):
+        fail(f"train_at: fixation sequences {fixations} (or non-finite weights)")
+    train_w, val_w = split_at_validation(video_w)
+    schedule = build_tbptt_schedule(train_w, AT_SEQ_LEN, min(TRAIN_B, len(train_w)))
+    val_schedule = build_tbptt_schedule(val_w, AT_SEQ_LEN, max(1, min(TRAIN_B, len(val_w))))
+    state = create_at_state(pipe)
+    step = make_at_tbptt_step(pipe)
+    evaluate = make_at_stateful_eval(pipe)
+    lanes = schedule[0]["inputs"].shape[0]
+    shape = (lanes, cfg.at.num_layers, cfg.at.hidden_size)
+    _, prof = device_profile(torch, lambda: extract(
+        {"prev": frames[:TRAIN_B], "cur": frames[1:TRAIN_B + 1], "gaze": gaze[1:TRAIN_B + 1]}))
+    extract_busy = busy_ms(prof)
+    losses, val_mse, step_ms = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(AT_EPOCHS):
+        cc = ch = torch.zeros(shape, device=dev)
+        for sched in schedule:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, dict(sched, carry_c=cc, carry_h=ch))
+            cc, ch = m["carry_c"], m["carry_h"]
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        val_mse.append(evaluate(state.module, val_schedule))
+    peak = torch.cuda.max_memory_allocated()
+    _, prof = device_profile(torch, lambda: step(state, dict(schedule[0], carry_c=cc,
+                                                             carry_h=ch)))
+    step_busy = busy_ms(prof)
+    # the carry threaded through consecutive windows = one rollout
+    lstm = state.module
+    seq = torch.from_numpy(max(video_w, key=len)[:-1]).to(dev)[None]
+    with torch.no_grad():
+        whole_carry, whole = lstm.rollout(lstm.init_carry(1, dev), seq)
+        carry, outs = lstm.init_carry(1, dev), []
+        for s in range(0, seq.shape[1], AT_SEQ_LEN):
+            carry, o = lstm.rollout(carry, seq[:, s:s + AT_SEQ_LEN])
+            outs.append(o)
+        thread_err = max(float((torch.cat(outs, 1) - whole).abs().max()),
+                         max(float((a - b).abs().max())
+                             for ca, cb in zip(carry, whole_carry) for a, b in zip(ca, cb)))
+    emit("train_at", videos=AT_VIDEOS, frames=AT_FRAMES, size=SIZE, fixations=fixations,
+         extract_batches=n_batches, extract_s=extract_s,
+         extract_batch_wall_ms=extract_s * 1e3 / n_batches, extract_batch_device_busy_ms=extract_busy,
+         extract_idle_share=1 - extract_busy / (extract_s * 1e3 / n_batches),
+         launches_per_extract_batch=per_batch,
+         seq_len=AT_SEQ_LEN, lanes=lanes, windows_per_epoch=len(schedule), epochs=AT_EPOCHS,
+         losses=losses, step_ms=step_ms, step_device_busy_ms=step_busy,
+         step_idle_share=1 - step_busy / float(np.median(step_ms)), peak_mem_bytes=peak,
+         val_mse=val_mse, threaded_windows=len(outs),
+         threaded_vs_rollout_max_diff=thread_err, tol=AT_THREAD_TOL)
+    if not all(np.isfinite(losses + val_mse)):
+        fail(f"train_at: non-finite losses {losses} or validation {val_mse}")
+    if not thread_err <= AT_THREAD_TOL:
+        fail(f"train_at: threaded windows differ from one rollout by {thread_err}")
+    return ({k: v.detach().clone() for k, v in lstm.state_dict().items()},
+            {k: v * n_batches for k, v in per_batch.items()})
+
+
+def train_lf_phase(torch, cuda, sp_state, at_state):
+    """LF at full width on the frozen SP and AT: teacher-forced steps at
+    B=8, one rollout step over B=2 clips of T=4, the eval step, a
+    checkpoint round trip and the resume check (cuDNN deterministic).
+    Returns the launch counts of the steps, the rollout step and the
+    eval."""
+    import tempfile
+
+    from gaze_tpu_torch.core.checkpoint import restore_checkpoint, save_checkpoint
+    from gaze_tpu_torch.core.config import parity_config
+    from gaze_tpu_torch.data.synthetic import SyntheticSpec, clip_iterator
+    from gaze_tpu_torch.models.pipeline import GazePipeline
+    from gaze_tpu_torch.train.lf import (create_lf_state, make_lf_eval_step,
+                                         make_lf_rollout_train_step, make_lf_train_step)
+
+    cfg = dataclasses.replace(parity_config(), train=dataclasses.replace(
+        parity_config().train, batch_size=TRAIN_B, learning_rate=TRAIN_LR))
+    per_step = flow_launches(cfg, 1)
+    frozen = {"sp": sp_state, "at": at_state}
+    pipe = GazePipeline(cfg, seed=0)
+    batches = sp_batches(cfg, TRAIN_B, LF_STEPS, seed=1)
+    state = create_lf_state(pipe)
+    step = make_lf_train_step(pipe, frozen)
+    losses, walls, total = [], [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        if launch_counts(cuda) != per_step:
+            fail(f"train_lf: step {i} launched {launch_counts(cuda)}, expected {per_step}")
+        total = {k: total.get(k, 0) + v for k, v in launch_counts(cuda).items()}
+    peak = torch.cuda.max_memory_allocated()
+    _, prof = device_profile(torch, lambda: step(state, batches[-1]))
+    busy = busy_ms(prof)
+    wall_ms = float(np.median(walls[1:])) * 1e3   # the first builds cuDNN's plans
+    clip = next(clip_iterator(SyntheticSpec(num_frames=64, height=SIZE, width=SIZE, seed=2),
+                              LF_CLIPS, LF_T, 1, seed=2))
+    rstep = make_lf_rollout_train_step(pipe, frozen)
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = rstep(state, clip)
+    torch.cuda.synchronize()
+    rollout_ms = (time.perf_counter() - t0) * 1e3
+    rollout_loss = float(m["loss"])
+    want = {k: v * LF_T for k, v in per_step.items()}
+    if launch_counts(cuda) != want:
+        fail(f"train_lf: rollout step launched {launch_counts(cuda)}, expected {want}")
+    total = {k: total[k] + v for k, v in launch_counts(cuda).items()}
+    _, prof = device_profile(torch, lambda: rstep(state, clip))
+    rollout_busy = busy_ms(prof)
+    cuda.reset_launch_counts()
+    ev = make_lf_eval_step(pipe, frozen)(state, batches[0])
+    if launch_counts(cuda) != per_step:
+        fail(f"train_lf: eval step launched {launch_counts(cuda)}, expected {per_step}")
+    total = {k: total[k] + v for k, v in launch_counts(cuda).items()}
+    aae, auc = ev["aae"].cpu().numpy(), ev["auc"].cpu().numpy()
+
+    def snap(st):
+        return ([v.detach().clone() for v in st.module.state_dict().values()]
+                + [t.clone() for t in st.opt_state.mu + st.opt_state.nu],
+                (st.step, st.opt_state.count))
+
+    def same(x, y):
+        return x[1] == y[1] and all(torch.equal(a, b) for a, b in zip(x[0], y[0]))
+
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lf_") as d:
+        before = snap(state)
+        save_checkpoint(d + "/rt", state.step, state)
+        other = create_lf_state(pipe, seed=7)
+        restore_checkpoint(d + "/rt", other)
+        round_trip = same(snap(other), before)
+        # resume: 2 steps + save + restore + 2 steps = 4 steps, bit for bit
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            st = create_lf_state(pipe)
+            for batch in batches[:4]:
+                st, _ = step(st, batch)
+            straight = snap(st)
+            st = create_lf_state(pipe)
+            for batch in batches[:2]:
+                st, _ = step(st, batch)
+            save_checkpoint(d + "/resume", st.step, st)
+            st = create_lf_state(pipe, seed=7)
+            restore_checkpoint(d + "/resume", st)
+            for batch in batches[2:4]:
+                st, _ = step(st, batch)
+            resumed = same(snap(st), straight)
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    emit("train_lf", batch=TRAIN_B, size=SIZE, channels=list(cfg.lf.channels), steps=LF_STEPS,
+         step_wall_ms=[w * 1e3 for w in walls], step_wall_ms_median=wall_ms,
+         step_device_busy_ms=busy, device_idle_share=1 - busy / wall_ms, peak_mem_bytes=peak,
+         losses=losses, launches_per_step=per_step, launches=total,
+         rollout={"clips": LF_CLIPS, "frames": LF_T, "loss": rollout_loss,
+                  "wall_ms": rollout_ms, "device_busy_ms": rollout_busy,
+                  "idle_share": 1 - rollout_busy / rollout_ms, "launches": want},
+         eval_mean_aae_deg=float(aae.mean()), eval_mean_auc=float(auc.mean()),
+         checkpoint_round_trip_bit_equal=round_trip, resume_bit_equal=resumed,
+         resume_cudnn_deterministic=True)
+    if not all(np.isfinite(losses + [rollout_loss])) or not np.isfinite(aae).all():
+        fail(f"train_lf: non-finite losses {losses}, {rollout_loss} or AAE {aae}")
+    if not round_trip:
+        fail("train_lf: a checkpoint round trip changed the state")
+    if not resumed:
+        fail("train_lf: 2 steps + save + restore + 2 steps differ from 4 steps")
+    return total
+
+
+def stages_phase(torch, cuda):
+    """The trainer end to end at full width: SP -> AT -> LF, 1 epoch of 2
+    steps at B=4 each, into a temporary directory removed afterwards;
+    then the restored best weights in a fresh GazePipeline run a rollout
+    evaluation over 2 videos. Returns the launch counts of the stages."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from gaze_tpu_torch.core.checkpoint import best_metric, latest_step
+    from gaze_tpu_torch.core.config import parity_config
+    from gaze_tpu_torch.data.synthetic import SyntheticSpec, generate_sequence
+    from gaze_tpu_torch.evaluation.rollout import rollout_eval_arrays
+    from gaze_tpu_torch.models.pipeline import GazePipeline
+    from gaze_tpu_torch.train.stages import (StageOptions, run_train_late, run_train_lstm,
+                                             run_train_sp)
+
+    cfg = dataclasses.replace(parity_config(), train=dataclasses.replace(
+        parity_config().train, batch_size=STAGE_B, learning_rate=TRAIN_LR))
+    d = tempfile.mkdtemp(prefix="chip_smoke_stages_")
+    try:
+        pipe = GazePipeline(cfg, seed=0)
+        opts = StageOptions(batch_size=STAGE_B, epochs=1, steps_per_epoch=STAGE_STEPS,
+                            save_dir=d, log_every=1)
+        log = io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            sp = run_train_sp(opts, pipe)
+            t_sp = time.perf_counter() - t0
+            at = run_train_lstm(opts, pipe, sp)
+            t_at = time.perf_counter() - t0 - t_sp
+            lf = run_train_late(opts, pipe, sp, at)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = launch_counts(cuda)
+        # preprocess_pair calls: SP 2 steps + 1 validation, AT one per
+        # extract batch of the 64-frame video, LF 2 steps + 1 validation
+        calls = (STAGE_STEPS + 1) + -(-(64 - 1) // STAGE_B) + (STAGE_STEPS + 1)
+        want = flow_launches(cfg, calls)
+        if launches != want:
+            fail(f"stages: kernel launches {launches}, expected {want}")
+        saved = {name: (latest_step(f"{d}/{name}"), best_metric(f"{d}/{name}"))
+                 for name in ("sp", "at", "lf")}
+        if not all(s is not None and m is not None for s, m in saved.values()):
+            fail(f"stages: missing checkpoints or best metrics {saved}")
+        lines = [json.loads(x) for x in log.getvalue().splitlines() if x.startswith("{")]
+        evalp = GazePipeline(cfg, seed=1)
+        evalp.load_state_dicts({"sp": sp, "at": at, "lf": lf.module.state_dict()})
+        seqs = [generate_sequence(SyntheticSpec(num_frames=STAGE_ROLL_T, height=SIZE,
+                                                width=SIZE, seed=2000 + v)) for v in range(2)]
+        frames, gaze, fixsac = (np.stack(x) for x in zip(*seqs))
+        sums = rollout_eval_arrays(evalp, frames, gaze, fixsac, chunk_len=STAGE_ROLL_T)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit("stages", batch=STAGE_B, epochs=1, steps_per_epoch=STAGE_STEPS, size=SIZE,
+         seconds=secs, sp_s=t_sp, at_s=t_at, lf_s=secs - t_sp - t_at, peak_mem_bytes=peak,
+         checkpoints={k: {"latest_step": s, "best_metric": m} for k, (s, m) in saved.items()},
+         log_lines=len(lines), final_losses={x["stage"]: x["loss"] for x in lines if "loss" in x},
+         launches=launches, rollout_videos=2, rollout_frames=STAGE_ROLL_T,
+         rollout_sums=[s.tolist() for s in sums], temp_dir_removed=not os.path.exists(d))
+    if not all(np.isfinite(s).all() for s in sums) or sums[2].tolist() != [STAGE_ROLL_T - 1] * 2:
+        fail(f"stages: rollout sums {sums}")
+    if os.path.exists(d):
+        fail(f"stages: {d} was not removed")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -677,9 +1326,9 @@ def main() -> None:
         from gaze_tpu_torch.core.config import parity_config
         from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
         from gaze_tpu_torch.ops import cuda
-        from gaze_tpu_torch.ops.cuda.tvl1_pd import pd_iterations, pd_iterations_plain
+        from gaze_tpu_torch.ops.cuda.tvl1_pd import pd_iterations
         from gaze_tpu_torch.ops.cuda.warp import warp3
-        from gaze_tpu_torch.ops.image import central_gradient, median3x3
+        from gaze_tpu_torch.ops.image import central_gradient
         from gaze_tpu_torch.ops.tvl1 import _pyramid_shapes, tvl1_flow
         from gaze_tpu_torch.ops.warp import warp3_plain
     except ImportError as e:
@@ -759,13 +1408,6 @@ def main() -> None:
     t1 = cfg.tvl1
     k2_err = 0.0
     k2_counter = cuda.kernels()["tvl1_pd"]
-
-    def k2_plain(args, kw, passes):
-        out = pd_iterations_plain(*args, **kw)
-        f1, f2 = out[:2]
-        for _ in range(passes):
-            f1, f2 = median3x3(f1), median3x3(f2)
-        return (f1, f2, *out[2:])
 
     for shape in [(B, 224, 224), (B, 112, 112), (B, 56, 56), (B, 28, 28), (2, 24, 40)]:
         n, H, W = shape
@@ -961,6 +1603,13 @@ def main() -> None:
     # -------------------------------------------------------- rollout
     rollout_launches = rollout_phase(torch, cuda, turbo)
 
+    # ------------------------------------------------------- training
+    sp_state, train_launches = train_sp_phase(torch, cuda)
+    at_state, at_launches = train_at_phase(torch, cuda, sp_state)
+    training = {"train_sp": train_launches, "train_at": at_launches,
+                "train_lf": train_lf_phase(torch, cuda, sp_state, at_state),
+                "stages": stages_phase(torch, cuda)}
+
     # ------------------------------------------------------- kernels
     sources = {"warp3": ("gaze_tpu_torch/csrc/warp.cu", "gaze_tpu/ops/pallas/warp.py:194"),
                "tvl1_pd": ("gaze_tpu_torch/csrc/tvl1_pd.cu",
@@ -979,6 +1628,7 @@ def main() -> None:
                      "launches_by_path": {"parity": launches[name], "turbo": turbo_launches[name],
                                           "serve": serve_launches[name],
                                           "rollout": rollout_launches[name]},
+                     "training_launches": {path: c[name] for path, c in training.items()},
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                      "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                      "library_ms": s["library_ms"], "per": units[name],

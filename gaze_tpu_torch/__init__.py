@@ -2,17 +2,22 @@
 
 The per-frame path of ``gaze_tpu`` (TV-L1 flow -> two-stream SP ->
 onset-gated AT LSTM -> LF head -> argmax gaze) on an NVIDIA H100, with
-its serving and evaluation surface:
+its serving and evaluation surface and its three training stages:
 
-- ``core``       — configuration dataclasses and device resolution;
+- ``core``       — configuration dataclasses, device resolution,
+                   checkpoints;
 - ``ops``        — preprocessing, image primitives, warp, TV-L1;
 - ``ops.cuda``   — the hand-written Hopper kernels (built from ``csrc/``
                    with nvcc at first use, bound with ctypes);
 - ``models``     — SP, AT, LF modules, the int8 streams, the decoder
                    variants, the weight bridge, the pipeline;
 - ``evaluation`` — AAE/AUC metrics, losses, the sequential rollout;
-- ``data``       — the synthetic corpus and I-DT fixation labels;
-- ``serve``      — ``StreamServer``, the multi-stream server.
+- ``data``       — the synthetic corpus, I-DT fixation labels, the flip
+                   augmentation, the device prefetcher;
+- ``serve``      — ``StreamServer``, the multi-stream server;
+- ``train``      — the SP, AT and LF training steps, AdamW, and the
+                   trainer (``train.stages``);
+- ``utils``      — the step logger.
 
 Importing the package builds nothing and touches no device; entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -1,1 +1,1 @@
-"""Configuration and device resolution for the port."""
+"""Configuration, device resolution and checkpoints for the port."""

@@ -1,4 +1,4 @@
-"""Configuration dataclasses of the port's inference path.
+"""Configuration dataclasses of the port.
 
 The port's own copy of the ``gaze_tpu`` config classes it needs
 (``gaze_tpu/core/config.py``): same class names, field names and
@@ -137,9 +137,37 @@ class CameraConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Per-stage optimization knobs (``train/``)."""
+
+    batch_size: int = 32
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-5
+    epochs: int = 10
+    # "constant", "cosine" (warmup -> cosine decay over lr_decay_steps) or
+    # "step" (x lr_decay_rate every lr_decay_steps); warmup applies to all.
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    lr_decay_steps: int = 0
+    lr_decay_rate: float = 0.1
+    # Global-norm gradient clipping; 0 = off.
+    grad_clip_norm: float = 0.0
+    # Microbatches per optimizer step (mean gradient); 1 = off.
+    grad_accum: int = 1
+    # Per-sample horizontal flip inside the SP train step (data/augment.py).
+    augment_flip: bool = False
+    # Activation type of the throughput path; float32 on the parity path.
+    compute_dtype: str = "float32"
+    checkpoint_dir: str = "save"
+    checkpoint_every_steps: int = 500
+    log_every_steps: int = 50
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """Config tree of the SP -> AT -> LF inference path and its
-    evaluation (loss, camera)."""
+    """Config tree of the SP -> AT -> LF pipeline, its evaluation (loss,
+    camera) and its training."""
 
     image: ImageConfig = dataclasses.field(default_factory=ImageConfig)
     tvl1: TVL1Config = dataclasses.field(default_factory=TVL1Config)
@@ -148,6 +176,7 @@ class PipelineConfig:
     lf: LFConfig = dataclasses.field(default_factory=LFConfig)
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
 def parity_config() -> PipelineConfig:

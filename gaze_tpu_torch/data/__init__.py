@@ -1,1 +1,2 @@
-"""Host-side data: the synthetic corpus and I-DT fixation labels."""
+"""Host-side data: the synthetic corpus, I-DT fixation labels, the flip
+augmentation and the device prefetcher."""

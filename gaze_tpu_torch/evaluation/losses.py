@@ -18,10 +18,14 @@ def floss(
 ) -> torch.Tensor:
     """Focal BCE between (B, H, W) sigmoid outputs and soft targets in
     [0, 1]: ``-t (1-p)^gamma log p - (1-t) p^gamma log(1-p)``, p clipped
-    to [eps, 1-eps]. ``sample_weight`` (B,) weighs each frame's mean
+    to [eps, 1-eps] as ``jnp.clip`` clips (its gradient included). ``sample_weight`` (B,) weighs each frame's mean
     (0 drops it) and renormalizes over the weights' sum."""
     cfg = cfg or LossConfig()
-    p = torch.clamp(pred, cfg.eps, 1.0 - cfg.eps)
+    # jnp.clip's min/max: a prediction exactly at a bound gets half the
+    # gradient, where torch.clamp would pass all of it
+    lo, hi = (torch.tensor(v, dtype=pred.dtype, device=pred.device)
+              for v in (cfg.eps, 1.0 - cfg.eps))
+    p = torch.minimum(torch.maximum(pred, lo), hi)
     t = target
     pos = -t * ((1.0 - p) ** cfg.gamma) * torch.log(p)
     neg = -(1.0 - t) * (p ** cfg.gamma) * torch.log(1.0 - p)

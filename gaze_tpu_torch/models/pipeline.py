@@ -17,7 +17,9 @@ flow grid; production is bfloat16 activations with half-grid flow;
 turbo adds reduced TV-L1 effort and int8 VGG streams
 (``models/quant.py``). The weights live in the modules (``sp``, ``lstm``,
 ``lf``); the JAX package's ``variables`` load through
-``models/weights.py``. The JAX pipeline's inference options are ported:
+``models/weights.py``. ``sp_forward_train`` and ``forward_step`` serve
+the training stages (``train/``). The JAX pipeline's inference options
+are ported:
 a precomputed flow image in place of the TV-L1 solve (``flow_img``), AT
 pooling at the previous prediction (``at_pool="prediction"``) and the
 polyphase or half-resolution decoder (``decoder_impl``,
@@ -184,14 +186,19 @@ class GazePipeline:
         prev = resize_frames(to_float(prev_u8), H, W)
         g0, g1 = rgb_to_gray(prev), rgb_to_gray(cur)
         s = cfg.tvl1.flow_scale
-        if s != 1.0:
-            fhw = (int(round(H * s)), int(round(W * s)))
-            flow_lo = tvl1_flow(resize_bilinear(g0, fhw), resize_bilinear(g1, fhw), cfg.tvl1,
-                                device=self.device)
-            flow = resize_nchw(flow_lo.permute(0, 3, 1, 2), (H, W)).permute(0, 2, 3, 1)
-            flow = flow * (1.0 / s)
-        else:
-            flow = tvl1_flow(g0, g1, cfg.tvl1, device=self.device)
+        # The flow is a constant of the model: no gradient flows through
+        # the solve (jax.lax.stop_gradient in the JAX pipeline), and the
+        # kernels, which have no backward, never see a tensor that
+        # requires one.
+        with torch.no_grad():
+            if s != 1.0:
+                fhw = (int(round(H * s)), int(round(W * s)))
+                flow_lo = tvl1_flow(resize_bilinear(g0, fhw), resize_bilinear(g1, fhw),
+                                    cfg.tvl1, device=self.device)
+                flow = resize_nchw(flow_lo.permute(0, 3, 1, 2), (H, W)).permute(0, 2, 3, 1)
+                flow = flow * (1.0 / s)
+            else:
+                flow = tvl1_flow(g0, g1, cfg.tvl1, device=self.device)
         flow_in = prepare_temporal_input(flow, cfg.tvl1.quant_bound)
         return normalize_rgb(cur, cfg.image).to(self.dtype), flow_in.to(self.dtype)
 
@@ -220,6 +227,17 @@ class GazePipeline:
         else:
             sal = self.sp.fuse_decode(feat.to(dt), f_temporal.to(dt))
         return sal, feat
+
+    def sp_forward_train(
+        self, rgb_in: torch.Tensor, flow_in: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training forward of the float SP with the deconv decoder:
+        train-mode BatchNorm, ``config.sp.remat`` applied. Returns
+        (saliency, spatial conv5, new BatchNorm running statistics); the
+        module's statistics are not updated (``SPNet.forward_train``)."""
+        if self.quant_sp is not None or self.decoder_impl != "deconv":
+            raise ValueError("training runs the float SP with the deconv decoder")
+        return self.sp.forward_train(rgb_in, flow_in)
 
     # ---------------------------------------------------------- step ----
     def attend(
@@ -265,7 +283,23 @@ class GazePipeline:
         gaze_xy=None,
         flow_img=None,
     ) -> Tuple[StreamState, Dict[str, torch.Tensor]]:
-        """One per-frame step over B independent streams.
+        """:meth:`forward_step` under ``torch.inference_mode``: the
+        serving and evaluation step."""
+        return self.forward_step(state, prev_u8, cur_u8, fixation, gaze_xy, flow_img)
+
+    def forward_step(
+        self,
+        state: StreamState,
+        prev_u8,
+        cur_u8,
+        fixation,
+        gaze_xy=None,
+        flow_img=None,
+    ) -> Tuple[StreamState, Dict[str, torch.Tensor]]:
+        """One per-frame step over B independent streams, in the caller's
+        autograd mode. :meth:`step` runs it under inference mode, whose
+        tensors autograd refuses to save; a training step that feeds the
+        outputs to a module it trains runs this under ``torch.no_grad()``.
 
         Args:
           state: recurrent StreamState.

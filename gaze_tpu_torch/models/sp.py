@@ -6,8 +6,21 @@ ReLU, then ConvTranspose(4, stride 2)+BN+ReLU blocks up to the input
 grid, a 1x1 conv to one channel and a sigmoid. Returns the saliency map
 and the spatial stream's conv5 features (what AT pools).
 
-NHWC at the public methods, NCHW inside. The decoder's BatchNorm uses
-its running statistics (inference; call ``.eval()``).
+NHWC at the public methods, NCHW inside. ``forward`` normalizes the
+decoder's BatchNorm with its running statistics (inference);
+``forward_train`` normalizes with the batch's statistics and returns the
+updated running statistics without storing them, as flax's
+``mutable=["batch_stats"]`` does:
+
+- the statistics are float32 (for bf16 activations too), the variance
+  the biased ``E[x^2] - E[x]^2`` clipped at 0, eps 1e-5;
+- running = 0.99 * running + 0.01 * batch (flax momentum 0.99, which is
+  torch's momentum 0.01; torch's own update takes the unbiased
+  variance, flax's the biased one).
+
+``cfg.remat`` recomputes activations in the backward pass instead of
+storing them (``torch.utils.checkpoint``): "encoders" for both VGG
+streams, "full" for the decoder too. It changes no value.
 
 ``dtype`` is the activation type (flax's ``dtype``, parameters float32):
 convolutions run in it; BatchNorm normalizes in float32 against its
@@ -17,14 +30,18 @@ to float32 before the sigmoid, and the conv5 features return as float32.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gaze_tpu_torch.core.config import SPConfig
 from gaze_tpu_torch.models.vgg import VGG16Features, conv
+
+BN_MOMENTUM = 0.99   # flax's: running = m * running + (1 - m) * batch
+REMAT_MODES = ("none", "encoders", "full")
 
 
 class Decoder(nn.Module):
@@ -51,6 +68,15 @@ class Decoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW features -> (B, 1, H, W) logits."""
+        return self._run(x, None)
+
+    def forward_train(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Train-mode BatchNorm: (logits, new running statistics keyed by
+        state-dict name), the statistics detached."""
+        stats: Dict[str, torch.Tensor] = {}
+        return self._run(x, stats), stats
+
+    def _run(self, x: torch.Tensor, stats) -> torch.Tensor:
         dt = self.dtype
         x = x.to(dt)
         for i in range(len(self.cfg.decoder_channels)):
@@ -58,10 +84,32 @@ class Decoder(nn.Module):
             x = F.conv_transpose2d(x, d.weight.to(dt), d.bias.to(dt), stride=2, padding=1)
             if self.cfg.use_batchnorm:
                 bn = getattr(self, f"bn{i + 1}")
-                x = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
-                                 bn.bias, False, 0.0, bn.eps).to(dt)
+                if stats is None:
+                    x = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
+                                     bn.bias, False, 0.0, bn.eps).to(dt)
+                else:
+                    x = _batch_norm_train(x, bn, f"bn{i + 1}", stats).to(dt)
             x = F.relu(x)
         return conv(self.out_conv, x)
+
+
+def _batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, name: str, stats) -> torch.Tensor:
+    """flax ``BatchNorm(use_running_average=False)`` on NCHW ``x``: float32
+    batch statistics over (B, H, W), the fast biased variance clipped at
+    0; the new running statistics go into ``stats``."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    mean2 = (xf * xf).mean(dim=(0, 2, 3))
+    # torch.maximum splits the gradient at a tie, as jnp.maximum does
+    var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
+    with torch.no_grad():
+        stats[f"{name}.running_mean"] = (
+            BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
+        stats[f"{name}.running_var"] = (
+            BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None]
+    return y + bn.bias[:, None, None]
 
 
 class SPNet(nn.Module):
@@ -70,6 +118,8 @@ class SPNet(nn.Module):
 
     def __init__(self, cfg: SPConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
+        if cfg.remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {cfg.remat!r}")
         self.cfg = cfg
         self.dtype = dtype
         c5 = cfg.stages[-1][-1]
@@ -92,6 +142,29 @@ class SPNet(nn.Module):
 
     def fuse_decode(self, f_spatial: torch.Tensor, f_temporal: torch.Tensor) -> torch.Tensor:
         """conv5 features of both streams (NHWC) -> saliency (B, H, W)."""
+        return torch.sigmoid(self.decoder(self._fuse(f_spatial, f_temporal)).float())[:, 0]
+
+    def _fuse(self, f_spatial: torch.Tensor, f_temporal: torch.Tensor) -> torch.Tensor:
         fused = torch.cat([f_spatial, f_temporal], dim=-1).permute(0, 3, 1, 2)
-        fused = F.relu(conv(self.fuse_conv, fused.to(self.dtype).contiguous()))
-        return torch.sigmoid(self.decoder(fused).float())[:, 0]
+        return F.relu(conv(self.fuse_conv, fused.to(self.dtype).contiguous()))
+
+    def forward_train(
+        self, rgb: torch.Tensor, flow: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training forward: (saliency, spatial conv5, the decoder's
+        new BatchNorm running statistics keyed by state-dict name). The
+        module's own statistics are left as they are; ``cfg.remat``
+        applies."""
+        remat = self.cfg.remat
+        if remat == "none":
+            f_spatial, f_temporal = self.encode(rgb, flow)
+        else:
+            f_spatial = checkpoint(self.spatial, rgb, use_reentrant=False)
+            f_temporal = checkpoint(self.temporal, flow, use_reentrant=False)
+        fused = self._fuse(f_spatial, f_temporal)
+        if remat == "full":
+            logits, stats = checkpoint(self.decoder.forward_train, fused, use_reentrant=False)
+        else:
+            logits, stats = self.decoder.forward_train(fused)
+        stats = {f"decoder.{k}": v for k, v in stats.items()}
+        return torch.sigmoid(logits.float())[:, 0], f_spatial.float(), stats

@@ -15,6 +15,11 @@ dicts with the same keys and conventions, so a file written by
 - LSTM: rows packed i, f, g, o; ``bias_ih`` zero, the flax hidden biases
   in ``bias_hh``.
 - Linear: weight = kernel.T.
+
+The conversions are linear, so they carry Adam's moments and gradients
+as they carry parameters: ``train_state_from_jax`` moves a JAX
+``TrainState`` (params, batch_stats, the Adam ``mu``/``nu`` and count,
+the step) into a port training state.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch.nn as nn
 
 from gaze_tpu_torch.models.at import LSTMNet
 from gaze_tpu_torch.models.lf import LateFusion
+from gaze_tpu_torch.models.sp import SPNet
 
 _GATES = ("i", "f", "g", "o")
 
@@ -115,6 +121,52 @@ def torch_state_from_jax(variables: Dict[str, Any]) -> Dict[str, StateDict]:
     return {k: {kk: torch.from_numpy(v) for kk, v in sd.items()} for k, sd in bundle.items()}
 
 
+def module_to_torch_state(module: nn.Module, variables: Dict[str, Any]) -> StateDict:
+    """The bridge for ``module``'s kind (SPNet, LSTMNet, LateFusion):
+    its JAX variables ({"params", optionally "batch_stats"}) as its state
+    dict of tensors."""
+    for kind, fn in ((SPNet, sp_to_torch_state), (LSTMNet, at_to_torch_state),
+                     (LateFusion, lf_to_torch_state)):
+        if isinstance(module, kind):
+            return {k: torch.from_numpy(v) for k, v in fn(variables).items()}
+    raise TypeError(f"no weight bridge for {type(module).__name__}")
+
+
+def _adam_state(opt_state):
+    """The (count, mu, nu) node of an optax state tree: the one object in
+    the (named)tuple nesting with ``mu`` and ``nu`` fields."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        found = [a for a in map(_adam_state, opt_state) if a is not None]
+        if len(found) > 1:
+            raise ValueError("more than one Adam state in the optax state")
+        return found[0] if found else None
+    return None
+
+
+def train_state_from_jax(jax_state: Any, state) -> None:
+    """Copy a JAX ``TrainState`` (its leaves as numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, state)``) into the port's ``state``
+    (``train/common.py:TrainState``) in place: parameters and BatchNorm
+    statistics through the module's bridge, Adam's ``mu`` and ``nu``
+    through the same linear conversions, the Adam count and the step."""
+    stats = jax_state.batch_stats or {}
+    module = state.module
+    with torch.no_grad():
+        load_state(module, module_to_torch_state(
+            module, {"params": jax_state.params, "batch_stats": stats}))
+        adam = _adam_state(jax_state.opt_state)
+        if adam is None:
+            raise ValueError("no Adam state (mu, nu) in the optax state")
+        for moments, ours in ((adam.mu, state.opt_state.mu), (adam.nu, state.opt_state.nu)):
+            conv = module_to_torch_state(module, {"params": moments, "batch_stats": stats})
+            for name, dst in zip(state.param_names, ours):
+                dst.copy_(conv[name])
+    state.opt_state.count = int(np.asarray(adam.count))
+    state.step = int(np.asarray(jax_state.step))
+
+
 def load_state(module: nn.Module, state: StateDict) -> None:
     """Load a bridge state dict: every parameter and buffer must be
     present except BatchNorm's ``num_batches_tracked`` (the bridge has
@@ -125,6 +177,12 @@ def load_state(module: nn.Module, state: StateDict) -> None:
         raise KeyError(f"state dict mismatch: missing {missing}, unexpected {unexpected}")
 
 
+def draw(param: torch.Tensor, sample) -> None:
+    """``param`` filled in place by ``sample`` applied to a CPU tensor of
+    its shape and dtype."""
+    param.copy_(sample(torch.empty(param.shape, dtype=param.dtype)))
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """The port's default initialisation, drawn from ``generator``.
 
@@ -132,7 +190,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     sqrt(2 / fan_in), fan_in of a stride-2 transposed conv counted per
     output pixel) and U(-1/sqrt(fan_in), +) biases; linear layers
     LeCun-normal; BatchNorm identity; LSTM as ``torch.nn.LSTM``; a
-    residual LF head's last conv zero.
+    residual LF head's last conv zero. The draws are made on the CPU
+    (``generator`` is a CPU generator) and copied to the module's device,
+    so a seed gives the same weights on either.
     """
     for m in module.modules():
         with torch.no_grad():
@@ -142,11 +202,13 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                     fan_in = m.in_channels * k // (m.stride[0] * m.stride[1])
                 else:
                     fan_in = m.in_channels * k
-                m.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+                draw(m.weight, lambda t: t.normal_(0.0, math.sqrt(2.0 / fan_in),
+                                                   generator=generator))
                 b = 1.0 / math.sqrt(fan_in)
-                m.bias.uniform_(-b, b, generator=generator)
+                draw(m.bias, lambda t: t.uniform_(-b, b, generator=generator))
             elif isinstance(m, nn.Linear):
-                m.weight.normal_(0.0, math.sqrt(1.0 / m.in_features), generator=generator)
+                draw(m.weight, lambda t: t.normal_(0.0, math.sqrt(1.0 / m.in_features),
+                                                   generator=generator))
                 m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()

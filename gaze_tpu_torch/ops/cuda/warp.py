@@ -19,8 +19,9 @@ KERNEL = CudaKernel("warp.cu", "warp3_launch", [PTR] * 10 + [INT] * 4 + [PTR])
 
 
 def check_fields(fields: Sequence[torch.Tensor]) -> None:
-    """Every field (B, H, W) float32 contiguous, one shape and device;
-    H, W >= 2 (the 4-tap gather and the divergence need two pixels)."""
+    """Every field (B, H, W) float32 contiguous, one shape and device, and
+    none requiring grad; H, W >= 2 (the 4-tap gather and the divergence
+    need two pixels)."""
     ref = fields[0]
     if ref.dim() != 3 or ref.shape[1] < 2 or ref.shape[2] < 2:
         raise ValueError(f"expected (B, H, W) with H, W >= 2, got {tuple(ref.shape)}")
@@ -31,6 +32,8 @@ def check_fields(fields: Sequence[torch.Tensor]) -> None:
             raise TypeError(f"expected float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("fields must be contiguous")
+        if t.requires_grad:
+            raise ValueError("the kernels have no backward: no field may require grad")
     if ref.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {ref.device}")
 

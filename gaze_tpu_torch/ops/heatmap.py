@@ -1,11 +1,28 @@
-"""Heatmap post-processing: argmax gaze decode and min-max normalize.
+"""Ground-truth heatmap rendering and heatmap post-processing: Gaussian
+targets, argmax gaze decode and min-max normalize.
 
-Counterpart of ``gaze_tpu/ops/heatmap.py:39-54``.
+Counterpart of ``gaze_tpu/ops/heatmap.py``.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def render_gaussian(
+    points: torch.Tensor, height: int, width: int, sigma: float
+) -> torch.Tensor:
+    """(B, 2) (x, y) pixel points -> (B, height, width) float32
+    unit-peak Gaussians ``exp(-d^2 / (2 sigma^2))``, on the points'
+    device. Points outside the frame still render their tails."""
+    B = points.shape[0]
+    dev = points.device
+    ys = torch.arange(height, dtype=torch.float32, device=dev).view(1, height, 1)
+    xs = torch.arange(width, dtype=torch.float32, device=dev).view(1, 1, width)
+    px = points[:, 0].to(torch.float32).reshape(B, 1, 1)
+    py = points[:, 1].to(torch.float32).reshape(B, 1, 1)
+    d2 = (xs - px) ** 2 + (ys - py) ** 2
+    return torch.exp(-d2 / (2.0 * sigma * sigma))
 
 
 def heatmap_argmax(hm: torch.Tensor) -> torch.Tensor:

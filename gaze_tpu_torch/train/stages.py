@@ -1,0 +1,310 @@
+"""The trainer: the SP, AT and LF stages in order, on the synthetic corpus.
+
+Counterpart of the training stages of ``gaze_tpu/cli.py``
+(``run_train_sp``, ``run_train_lstm``, ``run_train_late`` and their batch
+sources). Each stage trains one of the pipeline's modules in place,
+writes periodic checkpoints to ``<save_dir>/<stage>`` (or the stage's
+``*_ckpt``), validates and tracks the best checkpoint in
+``<save_dir>/<stage>_best``, and ends with the best (else the latest)
+state restored into the pipeline. A run resumes from the stage's latest
+checkpoint. Usage::
+
+    from gaze_tpu_torch.core.config import parity_config
+    from gaze_tpu_torch.models.pipeline import GazePipeline
+    from gaze_tpu_torch.train.stages import (
+        StageOptions, run_train_late, run_train_lstm, run_train_sp)
+
+    pipe = GazePipeline(parity_config())          # on the card
+    opts = StageOptions(batch_size=8, epochs=1, steps_per_epoch=100)
+    sp = run_train_sp(opts, pipe)
+    at = run_train_lstm(opts, pipe, sp)
+    lf = run_train_late(opts, pipe, sp, at)       # pipe now holds all three
+
+The GTEA loader (``data_root``) and the pretrained-VGG import wait for
+the host and CLI slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from gaze_tpu_torch.core.checkpoint import (
+    restore_best_or_latest,
+    restore_checkpoint,
+    save_best_checkpoint,
+    save_checkpoint,
+)
+from gaze_tpu_torch.core.config import PipelineConfig
+from gaze_tpu_torch.data.prefetch import device_prefetch
+from gaze_tpu_torch.data.synthetic import (
+    SyntheticSpec,
+    batch_iterator,
+    clip_iterator,
+    generate_sequence,
+)
+from gaze_tpu_torch.models.pipeline import GazePipeline
+from gaze_tpu_torch.models.weights import StateDict
+from gaze_tpu_torch.train.at import (
+    build_at_validation_windows,
+    build_tbptt_schedule,
+    build_weight_sequences,
+    create_at_state,
+    fixation_onset_weights,
+    make_at_eval_step,
+    make_at_stateful_eval,
+    make_at_tbptt_step,
+    make_at_train_step,
+    split_at_validation,
+)
+from gaze_tpu_torch.train.common import TrainState
+from gaze_tpu_torch.train.lf import (
+    create_lf_state,
+    make_lf_eval_step,
+    make_lf_rollout_train_step,
+    make_lf_train_step,
+)
+from gaze_tpu_torch.train.sp import (
+    create_sp_state,
+    extract_fixation_weights,
+    make_sp_eval_step,
+    make_sp_train_step,
+)
+from gaze_tpu_torch.utils.logging import StepLogger
+
+
+@dataclasses.dataclass(frozen=True)
+class StageOptions:
+    """The trainer's loop options, named and defaulted as the JAX CLI's
+    flags (the optimizer's settings are ``config.train``)."""
+
+    batch_size: int = 32
+    epochs: int = 1
+    steps_per_epoch: int = 100
+    seq_len: int = 16             # AT window
+    lf_rollout: int = 0           # > 0: LF trains on rolled-out clips of this length
+    at_stateless: bool = False    # AT on independent zero-carry windows
+    save_dir: str = "save"
+    sp_ckpt: Optional[str] = None
+    at_ckpt: Optional[str] = None
+    lf_ckpt: Optional[str] = None
+    log_every: int = 20
+    ckpt_every: int = 500         # periodic checkpoint every N steps (0 = off)
+    eval_every: int = 0           # SP validation every N steps (0 = at the end)
+    synthetic_blobs: int = 1
+    synthetic_videos: int = 1
+    data_root: Optional[str] = None
+
+
+def _no_data_root(opts: StageOptions) -> None:
+    if opts.data_root:
+        raise NotImplementedError("the GTEA loader (data_root) is not ported yet; "
+                                  "the trainer runs on the synthetic corpus")
+
+
+def _synth_spec(opts: StageOptions, cfg: PipelineConfig, seed: int) -> SyntheticSpec:
+    """The synthetic corpus's spec: 4 batches' worth of frames, at least
+    64 (40 per blob for the task-cycle corpus)."""
+    k = opts.synthetic_blobs
+    num_frames = max(64, opts.batch_size * 4)
+    if k > 1:
+        num_frames = max(num_frames, 40 * k)
+    return SyntheticSpec(num_frames=num_frames, height=cfg.image.height,
+                         width=cfg.image.width, seed=seed, num_blobs=k)
+
+
+def _batches(opts: StageOptions, cfg: PipelineConfig, train: bool) -> Iterator[Dict]:
+    """SP-style batches. Validation is one held-out sequence (seed 1);
+    training takes seed 0, or seeds 2.. with several videos."""
+    _no_data_root(opts)
+    nv = opts.synthetic_videos if train else 1
+    base = (2 if nv > 1 else 0) if train else 1
+    return batch_iterator(_synth_spec(opts, cfg, base), opts.batch_size,
+                          opts.steps_per_epoch, seed=base, num_videos=nv)
+
+
+def _clip_batches(opts: StageOptions, cfg: PipelineConfig, clip_len: int) -> Iterator[Dict]:
+    """Contiguous-clip batches for rollout-mode LF training."""
+    _no_data_root(opts)
+    nv = opts.synthetic_videos
+    base = 2 if nv > 1 else 0
+    return clip_iterator(_synth_spec(opts, cfg, base), opts.batch_size, clip_len,
+                         opts.steps_per_epoch, seed=base, num_videos=nv)
+
+
+def _val_aae(eval_fn, state: TrainState, vb: Dict) -> Dict[str, float]:
+    m = eval_fn(state, vb)
+    keep = np.asarray(vb["valid"]) > 0
+    return {"val_aae": float(np.mean(m["aae"].cpu().numpy()[keep])),
+            "val_auc": float(np.mean(m["auc"].cpu().numpy()[keep]))}
+
+
+def _snapshot(module: torch.nn.Module) -> StateDict:
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def run_train_sp(opts: StageOptions, pipeline: GazePipeline) -> StateDict:
+    """SP stage: prefetched batches -> train step; periodic checkpoints;
+    validation AAE with best tracking (every ``eval_every`` steps and at
+    the end). Returns the best SP state dict, also left in
+    ``pipeline.sp``."""
+    _no_data_root(opts)
+    cfg = pipeline.config
+    state = create_sp_state(pipeline)
+    ckpt_dir = opts.sp_ckpt or os.path.join(opts.save_dir, "sp")
+    restore_checkpoint(ckpt_dir, state)
+    step_fn = make_sp_train_step(pipeline)
+    eval_fn = make_sp_eval_step(pipeline)
+    logger = StepLogger("sp", every=opts.log_every)
+
+    def validate_and_track() -> None:
+        val = _val_aae(eval_fn, state, next(iter(_batches(opts, cfg, train=False))))
+        logger.log(state.step, val, force=True)
+        save_best_checkpoint(ckpt_dir, state.step, state, val["val_aae"])
+
+    for _ in range(opts.epochs):
+        for batch in device_prefetch(_batches(opts, cfg, train=True), pipeline.device):
+            state, metrics = step_fn(state, batch)
+            logger.log(state.step, metrics)
+            if opts.ckpt_every and state.step % opts.ckpt_every == 0:
+                save_checkpoint(ckpt_dir, state.step, state)
+            if opts.eval_every and state.step % opts.eval_every == 0:
+                validate_and_track()
+    validate_and_track()   # the stage-end validation: a best always exists
+    save_checkpoint(ckpt_dir, state.step, state)
+    restore_best_or_latest(ckpt_dir, state)
+    return _snapshot(pipeline.sp)
+
+
+def _extract_video_weights(opts: StageOptions, pipeline: GazePipeline,
+                           sp_state: StateDict) -> List[np.ndarray]:
+    """Per-video fixation-onset weight sequences from the frozen SP, over
+    the videos the SP stage trained on."""
+    _no_data_root(opts)
+    cfg = pipeline.config
+    extract = extract_fixation_weights(pipeline, sp_state)
+    nv = opts.synthetic_videos
+    base = 2 if nv > 1 else 0
+    video_w = []
+    for v in range(nv):
+        frames, gaze, fixsac = generate_sequence(_synth_spec(opts, cfg, base + v))
+        ws = []
+        for s in range(1, len(frames), opts.batch_size):
+            idx = np.arange(s, min(s + opts.batch_size, len(frames)))
+            batch = {"prev": frames[idx - 1], "cur": frames[idx], "gaze": gaze[idx]}
+            ws.append(extract(batch).cpu().numpy())
+        video_w.append(fixation_onset_weights(np.concatenate(ws), fixsac[1:]))
+    return video_w
+
+
+def run_train_lstm(opts: StageOptions, pipeline: GazePipeline,
+                   sp_state: StateDict) -> StateDict:
+    """AT stage: fixation weight sequences extracted with the frozen SP,
+    then the LSTM trained on stateful TBPTT windows (default) or on
+    independent zero-carry windows (``at_stateless``), validated on
+    held-out fixations with the matching statefulness each epoch. Returns
+    the best AT state dict, also left in ``pipeline.lstm``."""
+    cfg = pipeline.config
+    video_w = [w for w in _extract_video_weights(opts, pipeline, sp_state) if len(w) >= 2]
+    if not video_w:
+        raise RuntimeError("no fixation sequences extracted: check the fixsac labels")
+    video_w, val_w = split_at_validation(video_w)
+    if opts.at_stateless:
+        val_seqs, val_mask = build_at_validation_windows(val_w, opts.seq_len)
+        eval_fn = make_at_eval_step(pipeline)
+
+        def val_metric(lstm) -> Optional[float]:
+            return float(eval_fn(lstm, val_seqs, val_mask)) if len(val_seqs) else None
+    else:
+        val_schedule = build_tbptt_schedule(
+            val_w, opts.seq_len, max(1, min(opts.batch_size, len(val_w))))
+        stateful_eval = make_at_stateful_eval(pipeline)
+
+        def val_metric(lstm) -> Optional[float]:
+            return stateful_eval(lstm, val_schedule) if val_schedule else None
+
+    state = create_at_state(pipeline)
+    ckpt_dir = opts.at_ckpt or os.path.join(opts.save_dir, "at")
+    restore_checkpoint(ckpt_dir, state)
+    logger = StepLogger("at", every=opts.log_every)
+
+    def validate_and_track() -> None:
+        val_mse = val_metric(state.module)
+        if val_mse is None:
+            return
+        logger.log(state.step, {"val_mse": val_mse}, force=True)
+        save_best_checkpoint(ckpt_dir, state.step, state, val_mse)
+
+    if opts.at_stateless:
+        seqs, masks = [], []
+        for w in video_w:
+            s, m = build_weight_sequences(w, np.ones((len(w),), np.float32), opts.seq_len,
+                                          per_fixation=False)
+            if len(s):
+                seqs.append(s)
+                masks.append(m)
+        seqs, masks = np.concatenate(seqs), np.concatenate(masks)
+        bs = min(opts.batch_size, len(seqs))
+        step_fn = make_at_train_step(pipeline)
+        rng = np.random.default_rng(0)
+        for _ in range(opts.epochs):
+            order = rng.permutation(len(seqs))
+            for s in range(0, len(order) - bs + 1, bs):
+                idx = order[s:s + bs]
+                state, metrics = step_fn(state, {"weights": seqs[idx], "mask": masks[idx]})
+                logger.log(state.step, metrics)
+            validate_and_track()
+    else:
+        lanes = max(1, min(opts.batch_size, len(video_w)))
+        schedule = build_tbptt_schedule(video_w, opts.seq_len, lanes)
+        step_fn = make_at_tbptt_step(pipeline)
+        shape = (lanes, cfg.at.num_layers, cfg.at.hidden_size)
+        for _ in range(opts.epochs):
+            carry_c = torch.zeros(shape, device=pipeline.device)
+            carry_h = torch.zeros(shape, device=pipeline.device)
+            for sched in schedule:
+                batch = dict(sched, carry_c=carry_c, carry_h=carry_h)
+                state, metrics = step_fn(state, batch)
+                carry_c, carry_h = metrics["carry_c"], metrics["carry_h"]
+                logger.log(state.step, {"loss": metrics["loss"]})
+            validate_and_track()
+
+    save_checkpoint(ckpt_dir, state.step, state)
+    restore_best_or_latest(ckpt_dir, state)
+    return _snapshot(pipeline.lstm)
+
+
+def run_train_late(opts: StageOptions, pipeline: GazePipeline, sp_state: StateDict,
+                   at_state: StateDict) -> TrainState:
+    """LF stage on the frozen SP and AT: teacher-forced batches, or
+    rolled-out clips of ``lf_rollout`` frames; the teacher-forced AAE of
+    a held-out batch tracks the best each epoch. Returns the LF state
+    with the best (else the latest) checkpoint restored into
+    ``pipeline.lf``."""
+    _no_data_root(opts)
+    cfg = pipeline.config
+    frozen = {"sp": sp_state, "at": at_state}
+    state = create_lf_state(pipeline)
+    ckpt_dir = opts.lf_ckpt or os.path.join(opts.save_dir, "lf")
+    restore_checkpoint(ckpt_dir, state)
+    if opts.lf_rollout > 0:
+        step_fn = make_lf_rollout_train_step(pipeline, frozen)
+        batches = lambda: _clip_batches(opts, cfg, opts.lf_rollout)  # noqa: E731
+    else:
+        step_fn = make_lf_train_step(pipeline, frozen)
+        batches = lambda: _batches(opts, cfg, train=True)  # noqa: E731
+    eval_fn = make_lf_eval_step(pipeline, frozen)
+    logger = StepLogger("lf", every=opts.log_every)
+    for _ in range(opts.epochs):
+        for batch in device_prefetch(batches(), pipeline.device):
+            state, metrics = step_fn(state, batch)
+            logger.log(state.step, metrics)
+        val = _val_aae(eval_fn, state, next(iter(_batches(opts, cfg, train=False))))
+        logger.log(state.step, {"val_aae": val["val_aae"]}, force=True)
+        save_best_checkpoint(ckpt_dir, state.step, state, val["val_aae"])
+    save_checkpoint(ckpt_dir, state.step, state)
+    return restore_best_or_latest(ckpt_dir, state)

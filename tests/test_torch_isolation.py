@@ -1,13 +1,16 @@
 """The port stands alone and never hides the device or its kernels.
 
 - No module of gaze_tpu_torch, and not chip_smoke.py, imports jax, flax,
-  optax or gaze_tpu; a fresh interpreter that runs a CPU step has none
-  of them loaded.
-- Entry points default to CUDA and raise without it.
+  optax, orbax or gaze_tpu; a fresh interpreter that runs a CPU step,
+  the serving surface and the three training stages has none of them
+  loaded.
+- Entry points default to CUDA and raise without it; data-parallel
+  training (``mesh=``) raises until it is ported.
 - On CPU tensors the kernel wrappers take their plain versions and the
   launch counters stay at 0; bad inputs are refused.
-- The port's config copy has the JAX dataclasses' defaults, field by
-  field, and its presets are the JAX package's (``production_config``,
+- The port's config copy (training's included) has the JAX
+  dataclasses' defaults, field by field, and its presets are the JAX
+  package's (``production_config``,
   ``production_fast_config``, ``bench.PRESETS``).
 """
 
@@ -24,6 +27,7 @@ import torch
 
 from gaze_tpu.core import config as jconfig
 from gaze_tpu_torch.core import config as tconfig
+from gaze_tpu_torch.data.prefetch import device_prefetch
 from gaze_tpu_torch.evaluation.rollout import make_rollout_chunk_fn, rollout_eval_arrays
 from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
 from gaze_tpu_torch.models.quant import QuantSP, calibrate_pipeline_sp
@@ -35,10 +39,13 @@ from gaze_tpu_torch.ops.cuda.warp import warp3
 from gaze_tpu_torch.ops.tvl1 import tvl1_flow
 from gaze_tpu_torch.ops.warp import warp3_plain
 from gaze_tpu_torch.serve import StreamServer
+from gaze_tpu_torch.train.at import make_at_tbptt_step, make_at_train_step
+from gaze_tpu_torch.train.lf import make_lf_rollout_train_step, make_lf_train_step
+from gaze_tpu_torch.train.sp import make_sp_train_step
 from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gaze_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gaze_tpu")
 
 
 def port_sources():
@@ -58,6 +65,10 @@ def imported_roots(path):
 def test_no_module_imports_jax_or_the_jax_package():
     sources = port_sources()
     assert len(sources) > 10 and all(p.exists() for p in sources)
+    names = {str(p.relative_to(ROOT / "gaze_tpu_torch")) for p in sources[:-1]}
+    assert {"train/common.py", "train/sp.py", "train/at.py", "train/lf.py", "train/stages.py",
+            "core/checkpoint.py", "data/augment.py", "data/prefetch.py",
+            "utils/logging.py"} <= names
     bad = {str(p.relative_to(ROOT)): sorted(imported_roots(p) & set(FORBIDDEN))
            for p in sources}
     assert not {k: v for k, v in bad.items() if v}
@@ -67,6 +78,8 @@ def test_fresh_interpreter_runs_a_cpu_step_without_jax():
     code = textwrap.dedent("""
         import sys
         import numpy as np
+        import torch
+        torch.set_num_threads(2)   # as tests/torch_threads.py caps the test workers
         import gaze_tpu_torch
         from gaze_tpu_torch.core.config import (
             ATConfig, ImageConfig, LFConfig, PipelineConfig, SPConfig, TVL1Config)
@@ -103,8 +116,26 @@ def test_fresh_interpreter_runs_a_cpu_step_without_jax():
         s = gaze_tpu_torch.rollout_eval_arrays(pipe, frames, np.zeros((1, 3, 2), np.float32),
                                                np.ones((1, 3), np.float32), chunk_len=2)
         assert s[2].tolist() == [2.0] and np.isfinite(s[0]).all()
+        # the trainer: SP -> AT -> LF, one step each, checkpoints and all
+        import tempfile
+        from gaze_tpu_torch.train import stages
+        cfg = PipelineConfig(
+            image=ImageConfig(height=32, width=32),
+            tvl1=TVL1Config(pyramid_levels=2, warps=1, iters=2),
+            sp=SPConfig(stages=((4, 4), (4, 4), (4, 4, 4), (8, 8, 8), (8, 8, 8)),
+                        fused_channels=8, decoder_channels=(8, 4, 4, 4)),
+            at=ATConfig(feature_dim=8, hidden_size=8, roi_size=1),
+            lf=LFConfig(channels=(4,)),
+        )
+        pipe = gaze_tpu_torch.GazePipeline(cfg, device="cpu")
+        with tempfile.TemporaryDirectory() as d:
+            opts = stages.StageOptions(batch_size=2, steps_per_epoch=1, save_dir=d)
+            sp = stages.run_train_sp(opts, pipe)
+            lf = stages.run_train_late(opts, pipe, sp, stages.run_train_lstm(opts, pipe, sp))
+        assert lf.step == 1
         loaded = sorted(m for m in sys.modules
-                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "gaze_tpu"))
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                               "gaze_tpu"))
         print("LOADED", loaded)
     """)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -138,6 +169,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     frames = np.zeros((1, 2, 32, 32, 3), np.uint8)
     hm, _ = run_clip(pipe, frames, np.ones((1, 2), np.float32))
     assert hm.device.type == "cpu"
+    # the trainer: its prefetcher defaults to the card too; its stages run
+    # where their pipeline runs
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        next(device_prefetch(iter([{"x": np.zeros(1)}])))
+    assert next(device_prefetch(iter([{"x": np.zeros(1)}]), "cpu"))["x"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("make", ["sp", "at", "at_tbptt", "lf", "lf_rollout"])
+def test_data_parallel_training_waits_for_the_distributed_slice(make):
+    """Each train step takes ``jit_dp_step``'s ``mesh=``, which raises
+    until DDP is ported."""
+    pipe = GazePipeline(tiny_config(), device="cpu")
+    frozen = {"sp": pipe.sp.state_dict(), "at": pipe.lstm.state_dict()}
+    fn = {"sp": lambda **kw: make_sp_train_step(pipe, **kw),
+          "at": lambda **kw: make_at_train_step(pipe, **kw),
+          "at_tbptt": lambda **kw: make_at_tbptt_step(pipe, **kw),
+          "lf": lambda **kw: make_lf_train_step(pipe, frozen, **kw),
+          "lf_rollout": lambda **kw: make_lf_rollout_train_step(pipe, frozen, **kw)}[make]
+    assert callable(fn())
+    with pytest.raises(NotImplementedError):
+        fn(mesh=object())
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -288,16 +340,17 @@ def test_wrappers_refuse_bad_inputs(bad):
 
 
 @pytest.mark.parametrize("name", ["ImageConfig", "TVL1Config", "SPConfig", "ATConfig",
-                                  "LFConfig", "LossConfig", "CameraConfig", "PipelineConfig"])
+                                  "LFConfig", "LossConfig", "CameraConfig", "PipelineConfig",
+                                  "TrainConfig"])
 def test_config_copy_matches_the_jax_defaults(name):
     ours, theirs = getattr(tconfig, name)(), getattr(jconfig, name)()
     ours_fields = {f.name for f in dataclasses.fields(ours)}
     theirs_fields = {f.name for f in dataclasses.fields(theirs)}
     if name == "PipelineConfig":
-        # the port's tree holds the inference and evaluation sections;
-        # train and mesh wait for the training slice
-        assert ours_fields == {"image", "tvl1", "sp", "at", "lf", "loss", "camera"}
-        assert ours_fields <= theirs_fields
+        # the port's tree holds the inference, evaluation and training
+        # sections; mesh waits for the distributed slice
+        assert ours_fields == {"image", "tvl1", "sp", "at", "lf", "loss", "camera", "train"}
+        assert theirs_fields - ours_fields == {"mesh"}
     elif name == "CameraConfig":
         for geometry in ("gtea_gaze_plus", "gtea_gaze"):
             assert (dataclasses.asdict(getattr(tconfig.CameraConfig, geometry)())
