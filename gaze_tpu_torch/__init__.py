@@ -12,7 +12,9 @@ its serving and evaluation surface and its three training stages:
 - ``models``     — SP, AT, LF modules, the int8 streams, the decoder
                    variants, the weight bridge, the pipeline;
 - ``evaluation`` — AAE/AUC metrics, losses, the sequential rollout;
-- ``data``       — the synthetic corpus, I-DT fixation labels, the flip
+- ``data``       — the GTEA manifest and batches, the video and JPEG
+                   host IO, flow-image extraction on the card, the
+                   synthetic corpus, I-DT fixation labels, the flip
                    augmentation, the device prefetcher;
 - ``serve``      — ``StreamServer``, the multi-stream server;
 - ``train``      — the SP, AT and LF training steps, AdamW, and the
@@ -44,10 +46,18 @@ def __getattr__(name):
         from gaze_tpu_torch.serve import StreamServer
 
         return StreamServer
-    if name == "rollout_eval_arrays":
-        from gaze_tpu_torch.evaluation.rollout import rollout_eval_arrays
+    if name in ("rollout_eval_arrays", "rollout_eval_videos"):
+        from gaze_tpu_torch.evaluation import rollout
 
-        return rollout_eval_arrays
+        return getattr(rollout, name)
+    if name == "build_manifest":
+        from gaze_tpu_torch.data.gtea import build_manifest
+
+        return build_manifest
+    if name == "extract_flow_images":
+        from gaze_tpu_torch.data.flow_extract import extract_flow_images
+
+        return extract_flow_images
     if name == "compute_aae_auc":
         from gaze_tpu_torch.evaluation.metrics import compute_aae_auc
 

@@ -179,6 +179,20 @@ class PipelineConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
+def dense_flow_tvl1_config() -> TVL1Config:
+    """The TV-L1 schedule of OpenCV's DualTVL1 defaults, the solver that
+    dense_flow (the paper's flow-image producer) wraps: 5 scales at
+    factor 0.8, 5 warps, a 5-wide median, and a fixed 30 primal-dual
+    iterations per warp in place of OpenCV's epsilon-stopped schedule."""
+    return TVL1Config(
+        pyramid_levels=5,
+        pyramid_factor=0.8,
+        warps=5,
+        iters=30,
+        median_kernel=5,
+    )
+
+
 def parity_config() -> PipelineConfig:
     """The exact-math path for reference comparison: full-grid flow,
     float32 activations (GazePipeline's default dtype)."""

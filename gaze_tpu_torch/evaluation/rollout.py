@@ -18,17 +18,22 @@ the sums on the device, with ``where``: a masked frame may carry NaN
 gaze, and NaN * 0 would poison the sum. The sums accumulate in float64
 in frame order, so they do not depend on ``chunk_len``.
 
-Not ported yet: ``rollout_eval_videos`` (decoding GTEA videos chunk by
-chunk) and the ``mesh=`` option.
+``rollout_eval_arrays`` takes videos as arrays; ``rollout_eval_videos``
+decodes GTEA videos (``data/gtea.py`` records) chunk by chunk on a
+worker thread while the card runs the previous chunk. Not ported: the
+``mesh=`` option.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from gaze_tpu_torch.data.gtea import FrameRecord, _decode_flow_images, _decode_images
 from gaze_tpu_torch.evaluation.metrics import aae, auc_judd
 from gaze_tpu_torch.models.pipeline import GazePipeline, StreamState
 
@@ -57,6 +62,9 @@ def make_rollout_chunk_fn(
       flow_img: (V, T, h, w, 2) uint8 precomputed flow (``with_flow``),
       sums:     (3, V) float64: AAE sum, AUC sum, frame count.
 
+    The returned ``prev`` is a copy of the chunk's last frame, so a
+    caller may refill its ``frames`` buffer in place for the next chunk.
+
     ``score_key`` picks the scored map: "heatmap" (the LF fusion, the
     reported metric), "saliency" (SP only) or "attention" (AT only). The
     rollout itself is the same in all three.
@@ -82,6 +90,7 @@ def make_rollout_chunk_fn(
             u = torch.where(keep, auc_judd(out[score_key], gz), 0.0)
             per_frame.append(torch.stack([a, u, valid[:, t]]))
             prev = cur
+        prev = prev.clone()   # not a view of the caller's frames
         sums = torch.zeros_like(per_frame[0], dtype=torch.float64)
         for v in per_frame:   # in frame order: chunk_len does not change the sums
             sums += v
@@ -146,3 +155,164 @@ def rollout_eval_arrays(
         totals += sums.cpu().numpy()   # the chunk's one device-to-host copy
     return totals[0], totals[1], totals[2]
 
+
+
+def _decode_group_chunk(
+    group: Sequence[str], recs: Dict[str, List[FrameRecord]], s: int, chunk_len: int, V: int,
+    nh: int, nw: int, th: int, tw: int, use_precomputed_flow: bool, pin: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Decode one lockstep chunk, frames ``[s, s + chunk_len)``, for a
+    whole group of videos.
+
+    All frame paths of the group go into one batched decode call (the
+    threaded libjpeg decoder parallelizes inside a batch), and likewise
+    one flow-image decode. Returns host tensors (pinned when ``pin``):
+    frames (V, chunk_len, nh, nw, 3) uint8, fixsac, gaze (model-grid
+    pixels: native gaze times ``tw / nw``, ``th / nh``), valid, and the
+    flow images (V, chunk_len, h, w, 2) uint8 or None. Slots past a
+    video's end hold zeros (flow images 128) and valid 0.
+    """
+    frames_c = torch.zeros((V, chunk_len, nh, nw, 3), dtype=torch.uint8, pin_memory=pin)
+    fix_c, valid_c = (torch.zeros((V, chunk_len), pin_memory=pin) for _ in range(2))
+    gaze_c = torch.zeros((V, chunk_len, 2), pin_memory=pin)
+    frames_np, fix_np, gaze_np, valid_np = (x.numpy() for x in (frames_c, fix_c, gaze_c, valid_c))
+    slots: List[Tuple[int, int]] = []
+    flat_recs = []
+    for vi, v in enumerate(group):
+        rs = recs[v][s:s + chunk_len]
+        if not rs:
+            continue
+        fix_np[vi, :len(rs)] = [r.fixation for r in rs]
+        gaze_np[vi, :len(rs)] = [(r.gaze[0] * tw / nw, r.gaze[1] * th / nh) for r in rs]
+        valid_np[vi, :len(rs)] = [float(r.gaze_valid) for r in rs]
+        slots.extend((vi, t) for t in range(len(rs)))
+        flat_recs.extend(rs)
+    if not flat_recs:
+        raise ValueError(f"empty chunk at frame {s}: past every video's end")
+    for (vi, t), img in zip(slots, _decode_images([r.image_path for r in flat_recs])):
+        frames_np[vi, t] = img
+    flow_c = None
+    if use_precomputed_flow:
+        fl = _decode_flow_images(flat_recs)
+        flow_c = torch.full((V, chunk_len) + fl.shape[1:], FLOW_PAD, dtype=torch.uint8,
+                            pin_memory=pin)
+        flow_np = flow_c.numpy()
+        for (vi, t), f in zip(slots, fl):
+            flow_np[vi, t] = f
+    return frames_c, fix_c, gaze_c, valid_c, flow_c
+
+
+def rollout_eval_videos(
+    pipeline: GazePipeline,
+    videos: Dict[str, Sequence[FrameRecord]],
+    chunk_len: int = 32,
+    group_size: int = 8,
+    use_precomputed_flow: Optional[bool] = None,
+    mesh=None,
+    score_key: str = "heatmap",
+    decode_waits: Optional[List[float]] = None,
+) -> Dict[str, Tuple[float, float, int]]:
+    """Rollout-evaluate GTEA videos from their FrameRecord lists with the
+    pipeline's weights, on its device.
+
+    Videos advance in lockstep groups of ``group_size`` (short groups
+    padded with inactive slots, so every chunk has one shape), and are
+    decoded chunk by chunk on the host, so a whole video never needs to
+    fit in memory. One worker thread decodes chunk k+1 (one batched
+    decode across the group) while the card runs chunk k; on the card
+    the chunk is copied from pinned host memory on a side CUDA stream,
+    and the compute stream waits on that copy's event before the chunk
+    runs. Frames are decoded at their native size and resized on the
+    card (antialiased when shrinking); gaze is scaled by the decoded
+    size.
+
+    ``use_precomputed_flow``: None uses the flow images when every
+    record has one; True uses them; False solves TV-L1 on the card.
+    ``decode_waits``: a list that receives, per chunk, the seconds this
+    thread waited for the chunk's decode and copy to be issued.
+
+    Returns {video: (mean AAE in degrees, mean AUC, frames scored)}. A
+    video of one frame scores nothing: (nan, nan, 0). Raises ValueError
+    on an empty record list.
+    """
+    if mesh is not None:
+        raise NotImplementedError("mesh: the sharded rollout is not ported")
+    cfg = pipeline.config
+    th, tw = cfg.image.height, cfg.image.width
+    names = sorted(videos.keys())
+    recs = {v: sorted(videos[v], key=lambda r: r.index) for v in names}
+    empty = [v for v in names if not recs[v]]
+    if empty:
+        raise ValueError(
+            f"rollout_eval_videos: empty record lists for {empty[:5]}: a truncated or "
+            "abandoned manifest entry; drop them before evaluating")
+
+    def rec_has_flow(r: FrameRecord) -> bool:
+        return r.flow_path is not None or r.flow_xy_paths is not None
+
+    if use_precomputed_flow is None:
+        use_precomputed_flow = bool(names) and all(
+            rec_has_flow(r) for v in names for r in recs[v])
+    chunk_fn = make_rollout_chunk_fn(pipeline, with_flow=use_precomputed_flow,
+                                     score_key=score_key)
+    dev = pipeline.device
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    results: Dict[str, Tuple[float, float, int]] = {}
+
+    def stage(group, s, V, nh, nw):
+        """Decode a chunk; on the card, start its copy on the side stream."""
+        host = [x for x in _decode_group_chunk(group, recs, s, chunk_len, V, nh, nw, th, tw,
+                                               use_precomputed_flow, pin=side is not None)
+                if x is not None]
+        if side is None:
+            return host, None
+        with torch.cuda.stream(side):
+            staged = [x.to(dev, non_blocking=True) for x in host]
+            done = torch.cuda.Event()
+            done.record(side)
+        return staged, done
+
+    def consume(fut):
+        t0 = time.perf_counter()
+        staged, done = fut.result()
+        if decode_waits is not None:
+            decode_waits.append(time.perf_counter() - t0)
+        if done is not None:
+            compute = torch.cuda.current_stream(dev)
+            compute.wait_event(done)
+            for x in staged:   # allocated on the side stream, used on this one
+                x.record_stream(compute)
+        return staged
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        for g in range(0, len(names), group_size):
+            group = names[g:g + group_size]
+            V = group_size
+            T_max = max(len(recs[v]) for v in group)
+            if T_max < 2:
+                # no frame pair: nothing to score, as rollout_eval_arrays
+                results.update((v, (float("nan"), float("nan"), 0)) for v in group)
+                continue
+            state = pipeline.init_state(V)
+            # seed prev with each video's frame 0 (scoring starts at 1)
+            decoded0 = _decode_images([recs[v][0].image_path for v in group])
+            nh, nw = decoded0.shape[1:3]
+            prev_np = np.zeros((V, nh, nw, 3), np.uint8)
+            prev_np[:len(group)] = decoded0
+            prev = torch.from_numpy(prev_np).to(dev)
+            totals = np.zeros((3, V), np.float64)
+            starts = list(range(1, T_max, chunk_len))
+            fut = pool.submit(stage, group, starts[0], V, nh, nw)
+            chunk = consume(fut)
+            for si in range(len(starts)):
+                if si + 1 < len(starts):   # decode the next chunk while this one runs
+                    fut = pool.submit(stage, group, starts[si + 1], V, nh, nw)
+                state, prev, sums = chunk_fn(state, prev, *chunk)
+                if si + 1 < len(starts):
+                    chunk = consume(fut)
+                totals += sums.cpu().numpy()   # the chunk's one device-to-host copy
+            for vi, v in enumerate(group):
+                n = max(totals[2, vi], 1e-9)
+                results[v] = (float(totals[0, vi] / n), float(totals[1, vi] / n),
+                              int(totals[2, vi]))
+    return results

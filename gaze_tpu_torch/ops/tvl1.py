@@ -126,3 +126,16 @@ def tvl1_flow(
             u1 = resize_bilinear(u1, (nh, nw)) * sx
             u2 = resize_bilinear(u2, (nh, nw)) * sy
     return torch.stack([u1, u2], dim=-1)
+
+
+def quantize_flow(flow: torch.Tensor, bound: float) -> torch.Tensor:
+    """Float flow -> uint8 as dense_flow stores flow images: clip to
+    [-bound, bound], map linearly to [0, 255], round half to even."""
+    q = torch.clamp(flow, -bound, bound)
+    return torch.round((q + bound) * (255.0 / (2.0 * bound))).to(torch.uint8)
+
+
+def dequantize_flow(q: torch.Tensor, bound: float) -> torch.Tensor:
+    """Inverse of :func:`quantize_flow` (lossy: the 8-bit flow-image
+    format)."""
+    return q.to(torch.float32) * (2.0 * bound / 255.0) - bound

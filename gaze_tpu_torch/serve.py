@@ -175,9 +175,10 @@ class StreamServer:
         used on the compute stream, so the consuming tick records it
         there (``record_stream``) before the allocator may reuse it; the
         pinned source is held by the caching host allocator until its
-        copy has run."""
+        copy has run. A batch already on the server's device is copied too:
+        the caller may refill its buffer before the tick that reads it."""
         if torch.is_tensor(frames) and frames.device == self.device:
-            return frames, None
+            return frames.clone(), None
         host = torch.as_tensor(np.asarray(frames, dtype=np.uint8))
         if self._copy_stream is None:
             return host.clone(), None       # the caller may reuse its buffer
@@ -214,7 +215,7 @@ class StreamServer:
             return torch.where(first.reshape((-1,) + (1,) * (new.dim() - 1)), old, new)
 
         self._state = _map_state(keep_old, new_state, self._state)
-        self._prev = cur
+        self._prev.copy_(cur)   # the server's own buffer, never the caller's tensor
 
         gaze = out["gaze"].cpu().numpy().copy()
         gaze[first_np] = -1.0

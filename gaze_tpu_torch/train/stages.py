@@ -1,4 +1,5 @@
-"""The trainer: the SP, AT and LF stages in order, on the synthetic corpus.
+"""The trainer: the SP, AT and LF stages in order, on GTEA recordings or
+the synthetic corpus.
 
 Counterpart of the training stages of ``gaze_tpu/cli.py``
 (``run_train_sp``, ``run_train_lstm``, ``run_train_late`` and their batch
@@ -20,15 +21,21 @@ checkpoint. Usage::
     at = run_train_lstm(opts, pipe, sp)
     lf = run_train_late(opts, pipe, sp, at)       # pipe now holds all three
 
-The GTEA loader (``data_root``) and the pretrained-VGG import wait for
-the host and CLI slices.
+With ``data_root`` the stages read a GTEA tree (``data/gtea.py``): the
+videos of every subject but ``test_subject`` (default: the first
+subject) train, the held-out subject's validate, and
+``precomputed_flow`` says whether batches carry the tree's flow images
+("auto": when every pair has one); an epoch is every training pair
+(``steps_per_epoch`` counts synthetic batches only). Without it they
+read the synthetic corpus. The pretrained-VGG import waits for the CLI
+slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +47,7 @@ from gaze_tpu_torch.core.checkpoint import (
     save_checkpoint,
 )
 from gaze_tpu_torch.core.config import PipelineConfig
+from gaze_tpu_torch.data.gtea import FrameRecord, build_manifest, clip_batches, pair_batches
 from gaze_tpu_torch.data.prefetch import device_prefetch
 from gaze_tpu_torch.data.synthetic import (
     SyntheticSpec,
@@ -97,13 +105,23 @@ class StageOptions:
     eval_every: int = 0           # SP validation every N steps (0 = at the end)
     synthetic_blobs: int = 1
     synthetic_videos: int = 1
-    data_root: Optional[str] = None
+    data_root: Optional[str] = None   # a GTEA tree; None = the synthetic corpus
+    test_subject: Optional[str] = None   # held out of training (default: the first)
+    precomputed_flow: str = "auto"    # GTEA flow images: "auto", "on" or "off"
 
 
-def _no_data_root(opts: StageOptions) -> None:
-    if opts.data_root:
-        raise NotImplementedError("the GTEA loader (data_root) is not ported yet; "
-                                  "the trainer runs on the synthetic corpus")
+def _flow_mode(opts: StageOptions) -> Optional[bool]:
+    """``precomputed_flow`` -> ``pair_batches``' ``use_precomputed_flow``."""
+    return {"auto": None, "on": True, "off": False}[opts.precomputed_flow]
+
+
+def _gtea_split(opts: StageOptions, cfg: PipelineConfig
+                ) -> Tuple[List[FrameRecord], List[FrameRecord]]:
+    """(train, test) records of the GTEA tree at ``data_root``, leaving
+    ``test_subject`` (default: the first subject) out."""
+    manifest = build_manifest(opts.data_root,
+                              native_hw=(cfg.camera.native_height, cfg.camera.native_width))
+    return manifest.split_leave_one_out(opts.test_subject or manifest.subjects()[0])
 
 
 def _synth_spec(opts: StageOptions, cfg: PipelineConfig, seed: int) -> SyntheticSpec:
@@ -118,9 +136,15 @@ def _synth_spec(opts: StageOptions, cfg: PipelineConfig, seed: int) -> Synthetic
 
 
 def _batches(opts: StageOptions, cfg: PipelineConfig, train: bool) -> Iterator[Dict]:
-    """SP-style batches. Validation is one held-out sequence (seed 1);
-    training takes seed 0, or seeds 2.. with several videos."""
-    _no_data_root(opts)
+    """SP-style batches. GTEA: the training subjects' frame pairs,
+    shuffled, or the held-out subject's in order. Synthetic: validation
+    is one held-out sequence (seed 1); training takes seed 0, or seeds
+    2.. with several videos."""
+    if opts.data_root:
+        train_recs, test_recs = _gtea_split(opts, cfg)
+        return pair_batches(train_recs if train else test_recs, opts.batch_size,
+                            target_hw=(cfg.image.height, cfg.image.width), shuffle=train,
+                            use_precomputed_flow=_flow_mode(opts))
     nv = opts.synthetic_videos if train else 1
     base = (2 if nv > 1 else 0) if train else 1
     return batch_iterator(_synth_spec(opts, cfg, base), opts.batch_size,
@@ -129,7 +153,10 @@ def _batches(opts: StageOptions, cfg: PipelineConfig, train: bool) -> Iterator[D
 
 def _clip_batches(opts: StageOptions, cfg: PipelineConfig, clip_len: int) -> Iterator[Dict]:
     """Contiguous-clip batches for rollout-mode LF training."""
-    _no_data_root(opts)
+    if opts.data_root:
+        train_recs, _ = _gtea_split(opts, cfg)
+        return clip_batches(train_recs, opts.batch_size, clip_len,
+                            (cfg.image.height, cfg.image.width))
     nv = opts.synthetic_videos
     base = 2 if nv > 1 else 0
     return clip_iterator(_synth_spec(opts, cfg, base), opts.batch_size, clip_len,
@@ -152,7 +179,6 @@ def run_train_sp(opts: StageOptions, pipeline: GazePipeline) -> StateDict:
     validation AAE with best tracking (every ``eval_every`` steps and at
     the end). Returns the best SP state dict, also left in
     ``pipeline.sp``."""
-    _no_data_root(opts)
     cfg = pipeline.config
     state = create_sp_state(pipeline)
     ckpt_dir = opts.sp_ckpt or os.path.join(opts.save_dir, "sp")
@@ -184,12 +210,26 @@ def _extract_video_weights(opts: StageOptions, pipeline: GazePipeline,
                            sp_state: StateDict) -> List[np.ndarray]:
     """Per-video fixation-onset weight sequences from the frozen SP, over
     the videos the SP stage trained on."""
-    _no_data_root(opts)
     cfg = pipeline.config
     extract = extract_fixation_weights(pipeline, sp_state)
+    video_w = []
+    if opts.data_root:
+        train_recs, _ = _gtea_split(opts, cfg)
+        for v in sorted({r.video for r in train_recs}):
+            ws, fx = [], []
+            for batch in pair_batches([r for r in train_recs if r.video == v], opts.batch_size,
+                                      (cfg.image.height, cfg.image.width), shuffle=False,
+                                      drop_remainder=False,
+                                      use_precomputed_flow=_flow_mode(opts)):
+                ws.append(extract(batch).cpu().numpy())
+                # an untracked frame pools features at a garbage point: it
+                # seeds no fixation weight
+                fx.append(batch["fixsac"] * batch["valid"])
+            if ws:
+                video_w.append(fixation_onset_weights(np.concatenate(ws), np.concatenate(fx)))
+        return video_w
     nv = opts.synthetic_videos
     base = 2 if nv > 1 else 0
-    video_w = []
     for v in range(nv):
         frames, gaze, fixsac = generate_sequence(_synth_spec(opts, cfg, base + v))
         ws = []
@@ -285,7 +325,6 @@ def run_train_late(opts: StageOptions, pipeline: GazePipeline, sp_state: StateDi
     a held-out batch tracks the best each epoch. Returns the LF state
     with the best (else the latest) checkpoint restored into
     ``pipeline.lf``."""
-    _no_data_root(opts)
     cfg = pipeline.config
     frozen = {"sp": sp_state, "at": at_state}
     state = create_lf_state(pipeline)

@@ -1,9 +1,10 @@
 """The port stands alone and never hides the device or its kernels.
 
 - No module of gaze_tpu_torch, and not chip_smoke.py, imports jax, flax,
-  optax, orbax or gaze_tpu; a fresh interpreter that runs a CPU step,
-  the serving surface and the three training stages has none of them
-  loaded.
+  optax, orbax or gaze_tpu, or loads anything from ``native/`` (the JPEG
+  decoder is built from the port's own ``csrc/gaze_io.cpp``); a fresh
+  interpreter that runs a CPU step, the serving surface, the three
+  training stages and the GTEA data layer has none of them loaded.
 - Entry points default to CUDA and raise without it; data-parallel
   training (``mesh=``) raises until it is ported.
 - On CPU tensors the kernel wrappers take their plain versions and the
@@ -27,8 +28,14 @@ import torch
 
 from gaze_tpu.core import config as jconfig
 from gaze_tpu_torch.core import config as tconfig
+from gaze_tpu_torch.data import native_io
+from gaze_tpu_torch.data.flow_extract import FlowExtractSpec, extract_flow_images
 from gaze_tpu_torch.data.prefetch import device_prefetch
-from gaze_tpu_torch.evaluation.rollout import make_rollout_chunk_fn, rollout_eval_arrays
+from gaze_tpu_torch.evaluation.rollout import (
+    make_rollout_chunk_fn,
+    rollout_eval_arrays,
+    rollout_eval_videos,
+)
 from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
 from gaze_tpu_torch.models.quant import QuantSP, calibrate_pipeline_sp
 from gaze_tpu_torch.ops import cuda
@@ -68,10 +75,16 @@ def test_no_module_imports_jax_or_the_jax_package():
     names = {str(p.relative_to(ROOT / "gaze_tpu_torch")) for p in sources[:-1]}
     assert {"train/common.py", "train/sp.py", "train/at.py", "train/lf.py", "train/stages.py",
             "core/checkpoint.py", "data/augment.py", "data/prefetch.py",
-            "utils/logging.py"} <= names
+            "utils/logging.py", "data/video.py", "data/native_io.py", "data/gtea.py",
+            "data/flow_extract.py"} <= names
     bad = {str(p.relative_to(ROOT)): sorted(imported_roots(p) & set(FORBIDDEN))
            for p in sources}
     assert not {k: v for k, v in bad.items() if v}
+    # nothing is read from, or built into, the JAX package's native/
+    assert not [str(p) for p in sources
+                if "libgaze_io" in p.read_text() or "native/" in p.read_text()]
+    assert native_io.SOURCE == ROOT / "gaze_tpu_torch" / "csrc" / "gaze_io.cpp"
+    assert native_io.BUILD_DIR == ROOT / "gaze_tpu_torch" / "_build"
 
 
 def test_fresh_interpreter_runs_a_cpu_step_without_jax():
@@ -133,6 +146,22 @@ def test_fresh_interpreter_runs_a_cpu_step_without_jax():
             sp = stages.run_train_sp(opts, pipe)
             lf = stages.run_train_late(opts, pipe, sp, stages.run_train_lstm(opts, pipe, sp))
         assert lf.step == 1
+        # the GTEA data layer: frames written with PIL, the manifest, flow
+        # images on the CPU, a rollout over the tree
+        import os
+        from PIL import Image
+        from gaze_tpu_torch.data.flow_extract import FlowExtractSpec
+        with tempfile.TemporaryDirectory() as d:
+            os.makedirs(os.path.join(d, "images", "Ann_Tea"))
+            for i in range(3):
+                Image.fromarray(frames[0, i]).save(os.path.join(d, "images", "Ann_Tea",
+                                                                f"{i:06d}.jpg"))
+            spec = FlowExtractSpec(tvl1=cfg.tvl1, bound=15.0, batch_size=2)
+            assert gaze_tpu_torch.extract_flow_images(d, spec, verbose=False, device="cpu") == 2
+            m = gaze_tpu_torch.build_manifest(d)
+            r = gaze_tpu_torch.rollout_eval_videos(pipe, m.frames, chunk_len=2,
+                                                   use_precomputed_flow=True)
+            assert r["Ann_Tea"][2] == 0   # no gaze txt: every frame untracked
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                                "gaze_tpu"))
@@ -173,6 +202,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     # where their pipeline runs
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         next(device_prefetch(iter([{"x": np.zeros(1)}])))
+    # the data layer: flow extraction runs on the card unless asked not to
+    spec = FlowExtractSpec(tvl1=tconfig.TVL1Config(), bound=15.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        extract_flow_images("/nonexistent", spec)
     assert next(device_prefetch(iter([{"x": np.zeros(1)}]), "cpu"))["x"].device.type == "cpu"
 
 
@@ -198,12 +231,13 @@ def test_data_parallel_training_waits_for_the_distributed_slice(make):
     dict(rollout_mesh=True),
     dict(rollout_chunk_fn_mesh=True),
     dict(calibrate_quant_tail=True),
+    dict(rollout_videos_mesh=True),
 ])
 def test_unported_options_raise(kwargs):
     """bf16, the half-grid flow, ``quant_sp``, the flow-image input, both
     AT poolings and all three decoders are ported (held against JAX in
     ``test_torch_options.py``); the int8 tail and the sharded server and
-    rollout are not."""
+    rollouts (of arrays and of GTEA videos) are not."""
     pipe = GazePipeline(tiny_config(), device="cpu")
     f = np.zeros((1, 2, 32, 32, 3), np.uint8)
     (what,) = kwargs
@@ -216,6 +250,8 @@ def test_unported_options_raise(kwargs):
             StreamServer(tiny_config(), pipe.state_dicts(), 2, device="cpu", mesh=object())
         elif what == "rollout_mesh":
             rollout_eval_arrays(pipe, f, np.zeros((1, 2, 2)), np.ones((1, 2)), mesh=object())
+        elif what == "rollout_videos_mesh":
+            rollout_eval_videos(pipe, {}, mesh=object())
         else:
             make_rollout_chunk_fn(pipe, mesh=object())
 

@@ -162,3 +162,41 @@ def test_static_mode_and_always_alias(servers):
         np.testing.assert_array_equal(a["attention"], b["attention"])
     with pytest.raises(ValueError):
         StreamServer(tcfg, w, 2, fixation_source="eye_tracker", device="cpu")
+
+
+def test_a_refilled_buffer_matches_jax(servers):
+    """A caller that refills one tensor in place every call: each tick
+    and each submit() must see the frame the buffer held when it was
+    passed, and the next tick's flow must pair it with that frame, as
+    the JAX server (whose arrays are immutable) computes it."""
+    import torch
+
+    _, _, tcfg, v, frames = servers
+    kw = dict(keep_heatmaps=True, idt_dispersion_px=IDT_PX)
+    jsrv = JStreamServer(make_configs(image=dict(height=SIZE, width=SIZE),
+                                      tvl1=dict(pyramid_levels=2, warps=1, iters=3))[0],
+                         v, S, **kw)
+    tsrv = StreamServer(tcfg, torch_state_from_jax(v), S, device="cpu", **kw)
+    buf = torch.empty(frames.shape[1:], dtype=torch.uint8)
+    got, want = [], []
+    for srv in (jsrv, tsrv):
+        srv.attach(0)
+        srv.attach(2)
+    for t in range(3):
+        buf.copy_(torch.from_numpy(frames[t]))
+        got.append(tsrv.tick(buf))
+        want.append(jsrv.tick(frames[t]))
+    for t in range(3, 6):
+        buf.copy_(torch.from_numpy(frames[t]))
+        got.append(tsrv.submit(buf))
+        want.append(jsrv.submit(frames[t]))
+    buf.zero_()
+    got.append(tsrv.flush())
+    want.append(jsrv.flush())
+    assert got[3] is None and want[3] is None
+    for t, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            continue
+        np.testing.assert_array_equal(a["gaze"], b["gaze"], err_msg=str(t))
+        for k in ("heatmap", "saliency", "attention"):
+            np.testing.assert_allclose(a[k], b[k], atol=MAP_TOL, rtol=0, err_msg=f"{t} {k}")
