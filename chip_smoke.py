@@ -32,7 +32,18 @@ pipeline's weights and calibration:
   (one with 3 untracked frames) at chunk lengths 8 and 16, whose sums
   must be equal, and a CPU run of one video's first 5 frames.
 
-Then the three training stages at full width on the parity preset (f32,
+Then the tail phase: the turbo clip with the int8 fuse/decoder tail
+(``calibrate_pipeline_sp(quant_tail=True)`` on the same 4 pairs), timed in
+turns with the untailed clip; every tail layer (the 1x1 fuse at 14², the
+four 2x2 polyphase convs at 15², 29², 57², 113² and the 1x1 out conv at
+224², ``torch._int_mm`` on im2col matrices) on the main path's codes
+bit-equal to its plain version (an exact float64 product), timed beside
+its bound and the GEMM alone; the tail on the CPU from the same codes
+(equal codes); the clip against a CPU run; a ``save_quant_sp`` /
+``load_quant_sp`` round trip and a ``StreamServer`` on the loaded bundle
+held to ``run_clip``.
+
+Then the training stages at full width on the parity preset (f32,
 TF32 off), weights from ``torch.Generator`` seeds, data from the port's
 synthetic corpus:
 
@@ -51,9 +62,18 @@ synthetic corpus:
   4 frames, the eval step, a checkpoint round trip and the resume check
   (2 steps + save + restore + 2 steps = 4 steps, bit for bit, with cuDNN
   deterministic);
-- stages: ``run_train_sp`` -> ``run_train_lstm`` -> ``run_train_late``,
-  1 epoch of 2 steps at B=4, into a temporary directory removed
-  afterwards, then a rollout evaluation of the restored best weights.
+- qat: from the trained SP, the QAT scales calibrated on 4 pairs (their
+  file round trip), the first step at B=2 held to the CPU (which replays
+  the card's fake-quant codes, each within one code of its own), a warm-up step
+  at B=8 with every K1/K2 call held to its plain version, 5 timed steps
+  (exact launches), a ``remat="encoders"`` step, and the deploy check:
+  ``build_quant_vgg`` on the QAT scales (int8 stem, 26 K3 launches)
+  against the fake-quant conv5 of both streams (the reference's binding
+  property, its tolerance taken on the deployed grid);
+- stages: ``run_train_sp`` -> ``run_train_qat`` -> ``run_train_lstm`` ->
+  ``run_train_late``, 1 epoch of 2 steps at B=4, into a temporary
+  directory removed afterwards (``sp_qat/qat_act_scales.npz`` checked),
+  then a rollout evaluation of the restored best weights.
 
 Then the data layer, on a GTEA tree the script writes to a temporary
 directory removed at the end (8 videos x 33 frames at the native 720x960,
@@ -198,6 +218,40 @@ VIDEO_GROUP, VIDEO_CHUNKS, VIDEO_CPU_FRAMES = 8, (8, 16), 5
 # data_stages: the trainer on the tree at B=4, 1 epoch, the last subject
 # held out.
 DATA_STAGE_B = 4
+# The tail phase: the turbo clip with the int8 fuse/decoder tail. Its
+# layers at B=8: (name, output grid, kernel size); the up blocks' grids are
+# the polyphase convs' (N + 1 before the depth-to-space). The tail on the
+# CPU from the card's codes at B=2 must give the same codes (exact s32
+# accumulators, one float32 rounding per epilogue operation on both) and
+# the saliency within the sigmoid's ulps. A server on the reloaded bundle
+# is ticked over the clip's first frames.
+TAIL_LAYERS = (("fuse", 14, 1), ("up1", 15, 2), ("up2", 29, 2), ("up3", 57, 2),
+               ("up4", 113, 2), ("out", 224, 1))
+TAIL_CPU_B, TAIL_CPU_SAL_TOL, TAIL_SERVE_T = 2, 1e-6, 4
+# The qat phase: parity preset, scales calibrated on 4 pairs, B=8 steps as
+# train_sp's. Card vs CPU at B=2 on the same inputs: the float32 summation
+# gap of train_sp (1.1e-3) flips fake-quant codes at rounding boundaries,
+# and the flips cascade through the 13 layers: run free, the two steps
+# differ by chaotic amounts (on an H100 at 700 W, four runs: gradients
+# 1.2e-2 to 1.9e-2 relative L2, the loss 2.6e-5 to 2.8e-4, the conv5
+# features 7.6e-3 to 2.2e-2 apart with 43-49% of them unequal). So the
+# CPU step replays the card's quantization decisions (FakeQuantTape): each
+# fake-quant point takes the card's value, which must lie within one code
+# of the CPU's own rounding of its pre-activation with at most
+# QAT_FLIP_SHARE of the codes one apart; the step is then held to
+# train_sp's bands. The free-running conv5 gap is reported beside it.
+QAT_CALIB_PAIRS = 4
+QAT_FLIP_SHARE = 1e-3
+# The deploy check is the JAX package's binding property
+# (tests/test_qat.py:39-52): cosine > 0.999 and >= 98% of elements within
+# rtol 5e-2 and an atol that is the reference's 1e-3 taken on the deployed
+# grid: 18,900 conv5_3 accumulator units (act scale x weight scale) per
+# channel, which is what 1e-3 is in the reference's own case
+# (tests/test_torch_qat.py::test_binding_atol_on_the_deployed_grid). The
+# literal 1e-3 binds only at that case's feature scale (conv5 peaking at
+# 0.035): the port's He-normal weights give features of order 1, and the
+# JAX package's own forwards fall below 98% with it there too.
+QAT_BIND_COSINE, QAT_BIND_SHARE, QAT_BIND_RTOL, QAT_BIND_ATOL_LSB = 0.999, 0.98, 5e-2, 18900
 
 
 def fail(msg: str) -> None:
@@ -541,7 +595,7 @@ def turbo_phase(torch, dev, cuda, frames, fixsac):
     if not hm_diff <= CPU_TURBO_TOL:
         fail(f"turbo: heatmaps differ from the CPU run by {hm_diff} > {CPU_TURBO_TOL}")
     return dict(pipe=pipe, cfg=cfg, dtype=dtype, qsp=qsp, weights=pipe.state_dicts(),
-                heatmaps=heatmaps, gaze=gaze, launches=launches,
+                heatmaps=heatmaps, gaze=gaze, launches=launches, peak_mem_bytes=peak,
                 k3_device_ms_per_step=k3_dev_us / 2e3,
                 per_step={"warp3": levels * t1.warps, "tvl1_pd": levels * t1.warps,
                           "conv3x3_int8": 2 * int8_layers})
@@ -757,6 +811,208 @@ def rollout_phase(torch, cuda, turbo):
     if cpu_sums[2][0] != card_sums[2][0] or not (d_aae <= aae_band and d_auc <= auc_band):
         fail(f"rollout: card vs CPU: count {card_sums[2][0]} vs {cpu_sums[2][0]}, AAE sum "
              f"{d_aae} (band {aae_band}), AUC sum {d_auc} (band {auc_band})")
+    return launches
+
+
+def tail_phase(torch, dev, cuda, turbo, frames, fixsac):
+    """The turbo preset with the int8 fuse/decoder tail: calibration with
+    ``quant_tail=True``, the B x T clip beside the untailed turbo clip,
+    every tail layer on the main path's inputs bit-equal to its plain
+    version and timed, the tail on the card against the CPU, a bundle
+    round trip and a server on it. Returns the clip's launch counts."""
+    from gaze_tpu_torch.core.config import PRESETS
+    from gaze_tpu_torch.models.decode_fast import depth_to_space_offset_nhwc
+    from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
+    from gaze_tpu_torch.models.quant import calibrate_pipeline_sp, quant_vgg_forward
+    from gaze_tpu_torch.models.quant_io import load_quant_sp, save_quant_sp
+    from gaze_tpu_torch.models.quant_tail import (quantize_tail_input, tail_epilogue, tail_input,
+                                                  tail_layer, tail_taps)
+    from gaze_tpu_torch.ops.int8_gemm import conv_valid_int8_plain, im2col_valid, int_mm_padded
+    from gaze_tpu_torch.serve import StreamServer
+
+    p = PRESETS["turbo"]
+    cfg, dtype, weights = turbo["cfg"], turbo["dtype"], turbo["weights"]
+    base = GazePipeline(cfg, dtype=dtype, seed=0)
+    base.load_state_dicts(weights)
+    pairs = [(frames[:, t], frames[:, t + 1]) for t in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qsp = calibrate_pipeline_sp(base, pairs, percentile=p["quant_percentile"], quant_tail=True,
+                                bf16_stem=p["quant_stem"] == "bf16")
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    del base
+    pipe = GazePipeline(cfg, dtype=dtype, seed=0, quant_sp=qsp)
+    pipe.load_state_dicts(weights)
+    run_clip(pipe, frames[:, :2], fixsac[:, :2])   # warm-up: the GEMMs' plans, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    heatmaps, gaze = run_clip(pipe, frames, fixsac)
+    torch.cuda.synchronize()
+    walls = {"tail": [time.perf_counter() - t0], "untailed": []}
+    launches = launch_counts(cuda)
+    peak = torch.cuda.max_memory_allocated()
+    expect = {k: v * T for k, v in turbo["per_step"].items()}
+    if launches != expect:
+        fail(f"tail: kernel launches {launches}, expected {expect}")
+    if tuple(heatmaps.shape) != (B, T, SIZE, SIZE) or tuple(gaze.shape) != (B, T, 2):
+        fail(f"tail: shapes {tuple(heatmaps.shape)}, {tuple(gaze.shape)}")
+    if not bool(torch.isfinite(heatmaps).all()) or not bool(torch.isfinite(gaze).all()):
+        fail("tail: non-finite outputs")
+    if float(heatmaps.min()) < 0 or float(heatmaps.max()) > 1:
+        fail("tail: heatmap outside [0, 1]")
+    # the same clip with and without the tail, in turns
+    for order in (("untailed", "tail"), ("tail", "untailed"), ("untailed", "tail")):
+        for name in order:
+            t0 = time.perf_counter()
+            run_clip(pipe if name == "tail" else turbo["pipe"], frames, fixsac)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    wall = {k: float(np.median(v)) for k, v in walls.items()}
+    busy = {}
+    for name, pl in (("tail", pipe), ("untailed", turbo["pipe"])):
+        _, prof = device_profile(torch, lambda: run_clip(pl, frames[:, :3], fixsac[:, :3]))
+        busy[name] = busy_ms(prof) / 2
+
+    # every tail layer on the main path's inputs (the clip's first step)
+    qt = pipe.quant_sp.tail
+    taps = tail_taps(qt)
+    prev = torch.from_numpy(frames[:, 0]).to(dev)
+    cur = torch.from_numpy(frames[:, 1]).to(dev)
+    step = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                bytes_ms=0.0)
+    with torch.inference_mode():
+        rgb_in, flow_in = pipe.preprocess_pair(prev, cur)
+        f_s = quant_vgg_forward(pipe.quant_sp.spatial, rgb_in)
+        f_t = quant_vgg_forward(pipe.quant_sp.temporal, flow_in)
+        xq = quantize_tail_input(qt, f_s, f_t)
+        inputs = {}
+        for name, grid, k in TAIL_LAYERS:
+            tap = taps[name]
+            inputs[name] = xq
+            xin = tail_input(tap, xq)
+            got = tail_layer(tap, xq)
+            ref = tail_epilogue(tap, conv_valid_int8_plain(xin, tap.w, k))
+            torch.cuda.synchronize()
+            want_shape = (B, grid, grid) if name == "out" else (B, grid, grid, tap.w.shape[0])
+            if tuple(got.shape) != want_shape:
+                fail(f"tail {name}: shape {tuple(got.shape)}, expected {want_shape}")
+            if got.dtype != ref.dtype or not torch.equal(got, ref):
+                fail(f"tail {name}: {int((got != ref).sum())} of {ref.numel()} outputs differ "
+                     f"from the plain version")
+            big = B * grid * grid >= 8 * 56 * 56
+            ms = cuda_ms(torch, lambda: tail_layer(tap, xq), 20 if big else 100)
+            plain = cuda_ms(torch, lambda: tail_epilogue(
+                tap, conv_valid_int8_plain(tail_input(tap, xq), tap.w, k)), 3, 1)
+            cols = im2col_valid(xin, k)
+            lib = cuda_ms(torch, lambda: int_mm_padded(cols, tap.w), 20 if big else 100)
+            _, prof = device_profile(torch, lambda: [tail_layer(tap, xq) for _ in range(10)])
+            dev_ms = busy_ms(prof) / 10
+            m_rows, depth, width = cols.shape[0], cols.shape[1], tap.w.shape[0]
+            ops = 2 * m_rows * depth * width
+            nbytes = xq.numel() + tap.w.numel() + got.numel() * got.element_size() \
+                + 4 * width * (3 if name == "out" else 2)
+            ops_ms, bytes_ms = ops / INT8_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            row = dict(layer=name, gemm=[m_rows, depth, width], input=list(xq.shape),
+                       bitwise_equal=True, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                       gemm_ms=lib, bound_ms=max(ops_ms, bytes_ms),
+                       bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                       tops=ops / ms / 1e9)
+            emit("tail_layer", **row)
+            for key, v in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain),
+                           ("library_ms", lib), ("bound_ms", row["bound_ms"]),
+                           ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+                step[key] += v
+            if name != "out":
+                xq = got if name == "fuse" else depth_to_space_offset_nhwc(got, got.shape[-1] // 4)
+            del cols
+    step["bound_by"] = "operations" if step.pop("ops_ms") >= step.pop("bytes_ms") else "bytes"
+
+    # the tail on the CPU from the same codes: each layer's output equal
+    qt_cpu = qt.to("cpu")
+    taps_cpu = tail_taps(qt_cpu)
+    cpu_flips, cpu_sal_diff = {}, 0.0
+    with torch.inference_mode():
+        for name, _, _ in TAIL_LAYERS:
+            x_cpu = inputs[name][:TAIL_CPU_B].cpu()
+            got_c = tail_layer(taps_cpu[name], x_cpu)
+            got_g = tail_layer(taps[name], inputs[name][:TAIL_CPU_B]).cpu()
+            if name == "out":
+                cpu_sal_diff = float((got_c - got_g).abs().max())
+            else:
+                d = (got_c.to(torch.int16) - got_g.to(torch.int16)).abs()
+                cpu_flips[name] = [int((d != 0).sum()), int(d.max()), d.numel()]
+    # the whole clip, B=1 x T=2, on the CPU with the same weights and QuantSP
+    cpu = GazePipeline(cfg, dtype=dtype, device="cpu", quant_sp=qsp)
+    cpu.load_state_dicts(weights)
+    t0 = time.perf_counter()
+    hm_c, gaze_c = run_clip(cpu, frames[:1, :3], fixsac[:1, :3])
+    t_cpu = time.perf_counter() - t0
+    hm_g, gaze_g = heatmaps[:1, :2].cpu(), gaze[:1, :2].cpu()
+    hm_diff = float((hm_g - hm_c).abs().max())
+    ties, mismatched, tie = gaze_vs_cpu(hm_g, gaze_g, hm_c, gaze_c)
+
+    # the bundle: written, read back, served
+    d = tempfile.mkdtemp(prefix="chip_smoke_tail_")
+    try:
+        save_quant_sp(os.path.join(d, "bundle"), qsp)
+        back = load_quant_sp(os.path.join(d, "bundle"))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for part in ("spatial", "temporal", "tail"):
+        a, b = getattr(qsp, part), getattr(back, part)
+        for field in ("kernels", "w_scales", "biases", "act_scales", "col_sums"):
+            for k, v in getattr(a, field).items():
+                if not torch.equal(getattr(b, field)[k], v.cpu()):
+                    fail(f"tail: the bundle's {part}.{field}.{k} did not come back")
+    srv = StreamServer(cfg, weights, B, dtype=dtype, quant_sp=back, keep_heatmaps=True)
+    for i in range(B):
+        srv.attach(i)
+    cuda.reset_launch_counts()
+    srv.tick(frames[:, 0], fixsac[:, 0])
+    outs = [srv.tick(frames[:, t], fixsac[:, t]) for t in range(1, TAIL_SERVE_T + 1)]
+    srv_launches = launch_counts(cuda)
+    del srv
+    srv_hm = torch.stack([torch.from_numpy(o["heatmap"]) for o in outs], dim=1)
+    srv_gaze = torch.stack([torch.from_numpy(o["gaze"]) for o in outs], dim=1)
+    ref_hm = heatmaps[:, :TAIL_SERVE_T].float().cpu()
+    ref_gaze = gaze[:, :TAIL_SERVE_T].cpu()
+    srv_diff = float((srv_hm - ref_hm).abs().max())
+    srv_ties, srv_mismatched = near_ties(ref_hm, ref_gaze, srv_gaze, max(NEAR_TIE, 2 * srv_diff))
+    srv_expect = {k: v * (TAIL_SERVE_T + 1) for k, v in turbo["per_step"].items()}
+
+    emit("tail", batch=B, frames=T, size=SIZE, calibration_pairs=len(pairs),
+         calibration_s=calib_s, act_scales={k: float(v) for k, v in qt.act_scales.items()},
+         frames_per_s=B * T / wall["tail"], untailed_frames_per_s=B * T / wall["untailed"],
+         wall_s_runs=walls, step_wall_ms=wall["tail"] * 1e3 / T,
+         untailed_step_wall_ms=wall["untailed"] * 1e3 / T, step_device_busy_ms=busy["tail"],
+         untailed_step_device_busy_ms=busy["untailed"],
+         device_idle_share=1 - busy["tail"] / (wall["tail"] * 1e3 / T),
+         untailed_device_idle_share=1 - busy["untailed"] / (wall["untailed"] * 1e3 / T),
+         peak_mem_bytes=peak, untailed_peak_mem_bytes=turbo["peak_mem_bytes"],
+         launches=launches, launches_per_step=turbo["per_step"], tail_step=step,
+         cpu_same_codes_batch=TAIL_CPU_B, cpu_code_flips=cpu_flips,
+         cpu_saliency_max_diff=cpu_sal_diff, cpu_frames=2, cpu_s=t_cpu,
+         cpu_heatmap_max_diff=hm_diff, cpu_heatmap_tol=CPU_TURBO_TOL,
+         cpu_near_tie_frames=ties, cpu_near_tie_threshold=tie,
+         server_ticks=TAIL_SERVE_T + 1, server_launches=srv_launches,
+         server_vs_run_clip_max_diff=srv_diff, server_tol=SERVE_CLIP_TOL,
+         server_near_tie_frames=srv_ties, gaze_first_stream=gaze[0].tolist())
+    if any(f[1] > 0 for f in cpu_flips.values()) or not cpu_sal_diff <= TAIL_CPU_SAL_TOL:
+        fail(f"tail: the card's layers differ from the CPU's on the same codes: {cpu_flips}, "
+             f"saliency {cpu_sal_diff} (tol {TAIL_CPU_SAL_TOL})")
+    if mismatched:
+        fail(f"tail: gaze differs from the CPU run at frames {mismatched}")
+    if not hm_diff <= CPU_TURBO_TOL:
+        fail(f"tail: heatmaps differ from the CPU run by {hm_diff} > {CPU_TURBO_TOL}")
+    if srv_launches != srv_expect:
+        fail(f"tail: the server launched {srv_launches}, expected {srv_expect}")
+    if srv_mismatched or not srv_diff <= SERVE_CLIP_TOL:
+        fail(f"tail: the server on the loaded bundle differs from run_clip: heatmaps "
+             f"{srv_diff} (tol {SERVE_CLIP_TOL}), gaze at {srv_mismatched}")
+    del pipe, cpu, heatmaps, gaze
     return launches
 
 
@@ -1089,6 +1345,232 @@ def train_sp_phase(torch, cuda):
     return {k: v.detach().clone() for k, v in pipe.sp.state_dict().items()}, main_launches
 
 
+class FakeQuantTape:
+    """While recording, every ``_ste_fake_quant`` call of the QAT forward
+    (weights and activations, in call order) keeps its forward value on
+    the host; while replaying, each call returns the recorded value, on
+    its own device, with its own straight-through gradient, and counts the
+    codes where the recorded value differs from its own rounding."""
+
+    def __init__(self, torch):
+        from gaze_tpu_torch.models import qat
+
+        self.torch, self.qat, self.orig = torch, qat, qat._ste_fake_quant
+        self.values, self.replaying = [], False
+        self.max_code_diff, self.flipped, self.codes = 0, 0, 0
+
+    def _record(self, x, scale, lo, hi):
+        out = self.orig(x, scale, lo, hi)
+        self.values.append(out.detach().cpu())
+        return out
+
+    def _replay(self, x, scale, lo, hi):
+        torch = self.torch
+        s = scale.detach()
+        q = self.values[len(self.values) - self.pending].to(x.device)
+        self.pending -= 1
+        with torch.no_grad():
+            d = (torch.round(q / s) - torch.clamp(torch.round(x / s), lo, hi)).abs()
+            self.max_code_diff = max(self.max_code_diff, int(d.max()))
+            self.flipped += int((d != 0).sum())
+            self.codes += d.numel()
+        x_c = torch.minimum(torch.maximum(x, lo * s), hi * s)
+        return x_c + (q - x_c).detach()
+
+    def __call__(self, replay: bool):
+        self.replaying = replay
+        self.pending = len(self.values)
+        return self
+
+    def __enter__(self):
+        self.qat._ste_fake_quant = self._replay if self.replaying else self._record
+        return self
+
+    def __exit__(self, *exc):
+        self.qat._ste_fake_quant = self.orig
+        return False
+
+
+def qat_phase(torch, cuda, sp_state):
+    """QAT at full width on the parity preset, from the trained SP: the
+    scales calibrated on 4 pairs and their file round trip, the first step
+    at B=2 against the CPU, B=8 steps (a warm-up with every K1/K2 call
+    held to its plain version, then timed), a remat="encoders" step, and
+    the deploy check (the fake-quant conv5 against K3's chain on the QAT
+    scales). Returns the steps' launch counts."""
+    from gaze_tpu_torch.core.config import parity_config
+    from gaze_tpu_torch.models.pipeline import GazePipeline
+    from gaze_tpu_torch.models.qat import load_act_scales, qat_vgg_forward, save_act_scales
+    from gaze_tpu_torch.models.quant import build_quant_vgg, quant_vgg_forward
+    from gaze_tpu_torch.train.common import (make_optimizer, make_state,
+                                             microbatch_value_and_grad, to_device)
+    from gaze_tpu_torch.train.qat import calibrate_qat_scales, make_qat_train_step, qat_loss
+    from gaze_tpu_torch.train.sp import create_sp_state
+
+    cfg = dataclasses.replace(parity_config(), train=dataclasses.replace(
+        parity_config().train, batch_size=TRAIN_B, learning_rate=TRAIN_LR))
+    per_step = flow_launches(cfg, 1)
+    batches = sp_batches(cfg, TRAIN_B, TRAIN_STEPS + 2)
+    calib = sp_batches(cfg, TRAIN_B, QAT_CALIB_PAIRS, seed=1)
+    pairs = [(b["prev"], b["cur"]) for b in calib]
+    pipe = GazePipeline(cfg, seed=0)
+    dev = pipe.device
+    pipe.sp.load_state_dict(sp_state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scales = calibrate_qat_scales(pipe, pairs)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    d = tempfile.mkdtemp(prefix="chip_smoke_qat_")
+    try:
+        save_act_scales(d, scales)
+        back = load_act_scales(d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if not all(torch.equal(back[s][k], v.cpu()) for s in scales for k, v in scales[s].items()):
+        fail("qat: the scales file did not come back")
+    init = {k: v.detach().cpu().clone() for k, v in pipe.sp.state_dict().items()}
+
+    def fresh(p):
+        p.sp.load_state_dict(init)
+        return make_state(p.sp, make_optimizer(cfg.train))
+
+    def grads_on(p, st, sc, rgb, flow, mb):
+        return microbatch_value_and_grad(lambda m: qat_loss(p, sc, rgb, flow, m), st.params,
+                                         mb, 1)
+
+    # the first step at B=2 on the card and on the CPU, on the card's inputs
+    small = {k: v[:TRAIN_CPU_B] for k, v in batches[0].items()}
+    card = to_device(small, dev)
+    state = fresh(pipe)
+    rgb_in, flow_in = pipe.preprocess_pair(card["prev"], card["cur"])
+    tape = FakeQuantTape(torch)
+    with tape(replay=False):
+        (loss_g, stats_g), grads_g = grads_on(pipe, state, scales, rgb_in, flow_in, card)
+    cpu = GazePipeline(cfg, device="cpu", seed=0)
+    cpu_state = fresh(cpu)
+    cpu_scales = {s: {k: v.cpu() for k, v in d_.items()} for s, d_ in scales.items()}
+    t0 = time.perf_counter()
+    with tape(replay=True):
+        (loss_c, stats_c), grads_c = grads_on(cpu, cpu_state, cpu_scales, rgb_in.cpu(),
+                                              flow_in.cpu(), to_device(small, cpu.device))
+    cpu_s = time.perf_counter() - t0
+    a = {"fake_quant_points": len(tape.values), "replayed": len(tape.values) - tape.pending,
+         "codes": tape.codes, "flipped_codes": tape.flipped,
+         "max_code_diff": tape.max_code_diff,
+         "loss_rel_err": abs(float(loss_g) - float(loss_c)) / abs(float(loss_c)),
+         "grads": grad_compare(grads_g, grads_c, state.param_names),
+         "batch_stats_rel_err": stats_rel_err(stats_g, stats_c)}
+    with torch.no_grad():   # the free-running forwards: conv5 of both streams
+        for stream, x in (("spatial", rgb_in), ("temporal", flow_in)):
+            f_g = qat_vgg_forward(getattr(pipe.sp, stream), scales[stream], x).cpu()
+            f_c = qat_vgg_forward(getattr(cpu.sp, stream), cpu_scales[stream], x.cpu())
+            a[f"conv5_{stream}"] = {"rel_l2": float((f_g - f_c).norm() / f_c.norm()),
+                                    "unequal_share": float((f_g != f_c).double().mean())}
+    state.apply_gradients(grads_g, stats_g)
+    cpu_state.apply_gradients(grads_c, stats_c)
+    a["params_max_abs_diff"] = params_max_diff(pipe.sp, cpu.sp, state.param_names)
+    del cpu, cpu_state, grads_g, grads_c
+
+    # B=8 from the trained SP: a warm-up step with every K1/K2 call held to
+    # its plain version, then the timed steps
+    state = fresh(pipe)
+    step = make_qat_train_step(pipe, scales)
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    with CheckedKernels(torch) as chk:
+        state, m = step(state, batches[0])
+        torch.cuda.synchronize()
+    inside = chk.check("qat", {"warp3": per_step["warp3"], "tvl1_pd": per_step["tvl1_pd"]})
+    losses, walls, step_launches = [float(m["loss"])], [], [launch_counts(cuda)]
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[1 + i])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        step_launches.append(launch_counts(cuda))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    for n, got in enumerate(step_launches):
+        if got != per_step:
+            fail(f"qat: step {n} launched {got}, expected {per_step}")
+    main_launches = {k: sum(c[k] for c in step_launches) for k in per_step}
+    if not all(np.isfinite(losses)):
+        fail(f"qat: non-finite losses {losses}")
+    _, prof = device_profile(torch, lambda: step(state, batches[TRAIN_STEPS + 1]))
+    busy = busy_ms(prof)
+    wall_ms = float(np.median(walls)) * 1e3
+    top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:6]
+
+    # a remat="encoders" step's gradients against none's, same weights
+    rcfg = dataclasses.replace(cfg, sp=dataclasses.replace(cfg.sp, remat="encoders"))
+    rpipe = GazePipeline(rcfg, seed=0)
+    rstate = create_sp_state(rpipe)
+    rpipe.sp.load_state_dict(pipe.sp.state_dict())
+    rb = to_device(batches[0], dev)
+    r_rgb, r_flow = pipe.preprocess_pair(rb["prev"], rb["cur"])
+    g_remat = grads_on(rpipe, rstate, scales, r_rgb, r_flow, rb)[1]
+    g_none = grads_on(pipe, state, scales, r_rgb, r_flow, rb)[1]
+    remat = grad_compare(g_remat, g_none, state.param_names)
+    remat["bitwise_equal"] = all(torch.equal(x, y) for x, y in zip(g_remat, g_none))
+    del rpipe, rstate, g_remat, g_none
+
+    # deploy: the QAT weights through the PTQ path on the QAT scales (int8
+    # stem), K3's chain against the fake-quant forward
+    deploy, k3_launches = {}, 0
+    with torch.no_grad():
+        for stream, x in (("spatial", r_rgb), ("temporal", r_flow)):
+            vgg = getattr(pipe.sp, stream)
+            q = build_quant_vgg(vgg, scales[stream])
+            cuda.reset_launch_counts()
+            integer = quant_vgg_forward(q, x)
+            k3_launches += launch_counts(cuda)["conv3x3_int8"]
+            fake = qat_vgg_forward(vgg, scales[stream], x)
+            a_, b_ = fake.double().flatten(), integer.double().flatten()
+            err = (fake - integer).abs()
+            grid = QAT_BIND_ATOL_LSB * q.act_scales["conv5_3"] * q.w_scales["conv5_3"]
+            deploy[stream] = {
+                "cosine": float(a_ @ b_ / (a_.norm() * b_.norm())),
+                "close_share": float((err <= QAT_BIND_RTOL * integer.abs() + grid).double().mean()),
+                "close_share_atol_1e-3": float(torch.isclose(
+                    fake, integer, rtol=QAT_BIND_RTOL, atol=1e-3).double().mean()),
+                "atol_grid_median": float(grid.median()),
+                "feature_max": float(integer.abs().max())}
+    emit("qat", preset="parity", batch=TRAIN_B, size=SIZE, lr=TRAIN_LR,
+         calibration_pairs=QAT_CALIB_PAIRS, calibration_s=calib_s, steps_timed=TRAIN_STEPS,
+         step_wall_ms=[w * 1e3 for w in walls], step_wall_ms_median=wall_ms,
+         step_wall_ms_p90=float(np.percentile(walls, 90)) * 1e3, step_device_busy_ms=busy,
+         device_idle_share=1 - busy / wall_ms, samples_per_s=TRAIN_B / (wall_ms / 1e3),
+         peak_mem_bytes=peak, losses=losses, launches_per_step=per_step,
+         launches=main_launches, kernels_inside_step=inside,
+         top_kernels=[{"name": k[:90], "ms": v[0] / 1e3, "launches": v[1]} for k, v in top],
+         remat_encoders={"grads": remat, "tol": REMAT_GRAD_RTOL},
+         cpu_first_step={"batch": TRAIN_CPU_B, "same_inputs_card_codes": a, "cpu_s": cpu_s,
+                         "tol": {"flip_share": QAT_FLIP_SHARE, "loss_rel": TRAIN_LOSS_RTOL,
+                                 "grad_rel": TRAIN_GRAD_RTOL,
+                                 "batch_stats_rel": TRAIN_STATS_RTOL,
+                                 "params_abs": 2 * TRAIN_LR + 1e-6}},
+         deploy=deploy, deploy_k3_launches=k3_launches)
+    if not remat["model_rel_l2"] <= REMAT_GRAD_RTOL:
+        fail(f"qat: remat gradients {remat} from none's > {REMAT_GRAD_RTOL}")
+    if not (a["replayed"] == a["fake_quant_points"] > 0 and a["max_code_diff"] <= 1
+            and a["flipped_codes"] <= QAT_FLIP_SHARE * a["codes"]
+            and a["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and a["grads"]["model_rel_l2"] <= TRAIN_GRAD_RTOL
+            and a["batch_stats_rel_err"] <= TRAIN_STATS_RTOL
+            and a["params_max_abs_diff"] <= 2 * TRAIN_LR + 1e-6):
+        fail(f"qat: card vs CPU on the same inputs and codes outside the bands: {a}")
+    if k3_launches != 2 * 13:
+        fail(f"qat: the deploy check launched K3 {k3_launches} times, expected 26")
+    if not all(v["cosine"] > QAT_BIND_COSINE and v["close_share"] >= QAT_BIND_SHARE
+               for v in deploy.values()):
+        fail(f"qat: the fake-quant forward does not bind to the int8 chain: {deploy}")
+    return main_launches
+
+
 def train_at_phase(torch, cuda, sp_state):
     """AT at full width: fixation weights extracted with the trained SP
     over synthetic videos (exact K1/K2 launches per extract batch), then
@@ -1317,8 +1799,9 @@ def stages_phase(torch, cuda):
     from gaze_tpu_torch.data.synthetic import SyntheticSpec, generate_sequence
     from gaze_tpu_torch.evaluation.rollout import rollout_eval_arrays
     from gaze_tpu_torch.models.pipeline import GazePipeline
+    from gaze_tpu_torch.models.qat import SCALES_FILE
     from gaze_tpu_torch.train.stages import (StageOptions, run_train_late, run_train_lstm,
-                                             run_train_sp)
+                                             run_train_qat, run_train_sp)
 
     cfg = dataclasses.replace(parity_config(), train=dataclasses.replace(
         parity_config().train, batch_size=STAGE_B, learning_rate=TRAIN_LR))
@@ -1335,23 +1818,30 @@ def stages_phase(torch, cuda):
         with contextlib.redirect_stdout(log):
             sp = run_train_sp(opts, pipe)
             t_sp = time.perf_counter() - t0
+            sp = run_train_qat(opts, pipe, sp)
+            t_qat = time.perf_counter() - t0 - t_sp
             at = run_train_lstm(opts, pipe, sp)
-            t_at = time.perf_counter() - t0 - t_sp
+            t_at = time.perf_counter() - t0 - t_sp - t_qat
             lf = run_train_late(opts, pipe, sp, at)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         launches = launch_counts(cuda)
-        # preprocess_pair calls: SP 2 steps + 1 validation, AT one per
-        # extract batch of the 64-frame video, LF 2 steps + 1 validation
-        calls = (STAGE_STEPS + 1) + -(-(64 - 1) // STAGE_B) + (STAGE_STEPS + 1)
+        # preprocess_pair calls: SP 2 steps + 1 validation; QAT its
+        # calibration pairs (the epoch's 2 batches), 2 steps + 1
+        # validation; AT one per extract batch of the 64-frame video; LF 2
+        # steps + 1 validation
+        calls = (STAGE_STEPS + 1) + (2 * STAGE_STEPS + 1) + -(-(64 - 1) // STAGE_B) \
+            + (STAGE_STEPS + 1)
         want = flow_launches(cfg, calls)
         if launches != want:
             fail(f"stages: kernel launches {launches}, expected {want}")
         saved = {name: (latest_step(f"{d}/{name}"), best_metric(f"{d}/{name}"))
-                 for name in ("sp", "at", "lf")}
+                 for name in ("sp", "sp_qat", "at", "lf")}
         if not all(s is not None and m is not None for s, m in saved.values()):
             fail(f"stages: missing checkpoints or best metrics {saved}")
+        if not os.path.exists(os.path.join(d, "sp_qat", SCALES_FILE)):
+            fail(f"stages: run_train_qat wrote no {SCALES_FILE}")
         lines = [json.loads(x) for x in log.getvalue().splitlines() if x.startswith("{")]
         evalp = GazePipeline(cfg, seed=1)
         evalp.load_state_dicts({"sp": sp, "at": at, "lf": lf.module.state_dict()})
@@ -1362,7 +1852,8 @@ def stages_phase(torch, cuda):
     finally:
         shutil.rmtree(d, ignore_errors=True)
     emit("stages", batch=STAGE_B, epochs=1, steps_per_epoch=STAGE_STEPS, size=SIZE,
-         seconds=secs, sp_s=t_sp, at_s=t_at, lf_s=secs - t_sp - t_at, peak_mem_bytes=peak,
+         seconds=secs, sp_s=t_sp, qat_s=t_qat, at_s=t_at, lf_s=secs - t_sp - t_qat - t_at,
+         peak_mem_bytes=peak,
          checkpoints={k: {"latest_step": s, "best_metric": m} for k, (s, m) in saved.items()},
          log_lines=len(lines), final_losses={x["stage"]: x["loss"] for x in lines if "loss" in x},
          launches=launches, rollout_videos=2, rollout_frames=STAGE_ROLL_T,
@@ -2184,10 +2675,16 @@ def main() -> None:
     # -------------------------------------------------------- rollout
     rollout_launches = rollout_phase(torch, cuda, turbo)
 
+    # ----------------------------------------------------------- tail
+    tail_launches = tail_phase(torch, dev, cuda, turbo, frames, fixsac)
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------- training
     sp_state, train_launches = train_sp_phase(torch, cuda)
+    qat_launches = qat_phase(torch, cuda, sp_state)
+    torch.cuda.empty_cache()
     at_state, at_launches = train_at_phase(torch, cuda, sp_state)
-    training = {"train_sp": train_launches, "train_at": at_launches,
+    training = {"train_sp": train_launches, "qat": qat_launches, "train_at": at_launches,
                 "train_lf": train_lf_phase(torch, cuda, sp_state, at_state),
                 "stages": stages_phase(torch, cuda)}
     del sp_state, at_state
@@ -2226,6 +2723,7 @@ def main() -> None:
                      "launches_by_path": {"parity": launches[name], "turbo": turbo_launches[name],
                                           "serve": serve_launches[name],
                                           "rollout": rollout_launches[name],
+                                          "tail": tail_launches[name],
                                           **{k: c[name] for k, c in data_launches.items()}},
                      "training_launches": {path: c[name] for path, c in training.items()},
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],

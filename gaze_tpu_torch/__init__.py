@@ -2,23 +2,27 @@
 
 The per-frame path of ``gaze_tpu`` (TV-L1 flow -> two-stream SP ->
 onset-gated AT LSTM -> LF head -> argmax gaze) on an NVIDIA H100, with
-its serving and evaluation surface and its three training stages:
+its int8 serving path (the VGG streams and the fuse/decoder tail), its
+serving and evaluation surface and its training stages (SP, QAT, AT,
+LF):
 
 - ``core``       — configuration dataclasses, device resolution,
                    checkpoints;
-- ``ops``        — preprocessing, image primitives, warp, TV-L1;
+- ``ops``        — preprocessing, image primitives, warp, TV-L1, the
+                   int8 GEMM convs of the quantized tail;
 - ``ops.cuda``   — the hand-written Hopper kernels (built from ``csrc/``
                    with nvcc at first use, bound with ctypes);
-- ``models``     — SP, AT, LF modules, the int8 streams, the decoder
-                   variants, the weight bridge, the pipeline;
+- ``models``     — SP, AT, LF modules, the int8 streams and tail, the
+                   QAT fake-quant forward, the decoder variants, the
+                   weight bridge, the pipeline;
 - ``evaluation`` — AAE/AUC metrics, losses, the sequential rollout;
 - ``data``       — the GTEA manifest and batches, the video and JPEG
                    host IO, flow-image extraction on the card, the
                    synthetic corpus, I-DT fixation labels, the flip
                    augmentation, the device prefetcher;
 - ``serve``      — ``StreamServer``, the multi-stream server;
-- ``train``      — the SP, AT and LF training steps, AdamW, and the
-                   trainer (``train.stages``);
+- ``train``      — the SP, QAT, AT and LF training steps, AdamW, and
+                   the trainer (``train.stages``);
 - ``utils``      — the step logger.
 
 Importing the package builds nothing and touches no device; entry points
@@ -38,6 +42,18 @@ def __getattr__(name):
         from gaze_tpu_torch.core import config
 
         return getattr(config, name)
+    if name in ("QuantSP", "calibrate_pipeline_sp"):
+        from gaze_tpu_torch.models import quant
+
+        return getattr(quant, name)
+    if name in ("save_quant_sp", "load_quant_sp"):
+        from gaze_tpu_torch.models import quant_io
+
+        return getattr(quant_io, name)
+    if name == "QuantTail":
+        from gaze_tpu_torch.models.quant_tail import QuantTail
+
+        return QuantTail
     if name == "tvl1_flow":
         from gaze_tpu_torch.ops.tvl1 import tvl1_flow
 

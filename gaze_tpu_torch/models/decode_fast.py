@@ -66,6 +66,20 @@ def _depth_to_space_offset(y: torch.Tensor, c: int) -> torch.Tensor:
     return torch.stack([r0, r1], dim=3).reshape(b, c, 2 * n, 2 * m)
 
 
+def depth_to_space_offset_nhwc(y: torch.Tensor, c: int) -> torch.Tensor:
+    """:func:`_depth_to_space_offset` on NHWC: (B, N+1, M+1, 4C) ->
+    (B, 2N, 2M, C), any dtype (the int8 tail moves codes with it)."""
+    b = y.shape[0]
+    n, m = y.shape[1] - 1, y.shape[2] - 1
+    y00 = y[:, :-1, :-1, 0 * c:1 * c]
+    y01 = y[:, :-1, 1:, 1 * c:2 * c]
+    y10 = y[:, 1:, :-1, 2 * c:3 * c]
+    y11 = y[:, 1:, 1:, 3 * c:4 * c]
+    r0 = torch.stack([y00, y01], dim=3).reshape(b, n, 2 * m, c)
+    r1 = torch.stack([y10, y11], dim=3).reshape(b, n, 2 * m, c)
+    return torch.stack([r0, r1], dim=2).reshape(b, 2 * n, 2 * m, c)
+
+
 def _conv_hwio(x: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
     """VALID conv of NCHW ``x`` with an HWIO kernel, in ``x``'s dtype."""
     return F.conv2d(x, w_hwio.permute(3, 2, 0, 1).to(x.dtype))

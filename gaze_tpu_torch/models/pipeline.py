@@ -38,6 +38,7 @@ from gaze_tpu_torch.models import decode_fast
 from gaze_tpu_torch.models.at import LSTMNet, attention_map, fixation_pool
 from gaze_tpu_torch.models.lf import LateFusion
 from gaze_tpu_torch.models.quant import CONV_IMPLS, QuantSP, quant_taps, quant_vgg_forward
+from gaze_tpu_torch.models.quant_tail import quant_tail_forward, tail_taps
 from gaze_tpu_torch.models.sp import SPNet
 from gaze_tpu_torch.models.weights import StateDict, init_weights, load_state
 from gaze_tpu_torch.ops.heatmap import heatmap_argmax
@@ -79,7 +80,8 @@ class GazePipeline:
         :meth:`load_state_dicts`.
       quant_sp: a ``models.quant.QuantSP`` (from ``calibrate_pipeline_sp``
         or ``models/quant_io.py:load_quant_sp``): both VGG streams run
-        int8, the fuse/decoder tail in ``dtype``.
+        int8, the fuse/decoder tail in ``dtype``, or int8 too when the
+        bundle holds a ``tail``.
       quant_conv: the JAX pipeline's int8 conv choice, "xla" or
         "pallas"; both run through kernel K3 on the card.
       at_pool: where AT pools its channel weights when no teacher gaze
@@ -133,6 +135,8 @@ class GazePipeline:
             "spatial": quant_taps(self.quant_sp.spatial),
             "temporal": quant_taps(self.quant_sp.temporal),
         }
+        if quant_sp is not None and quant_sp.tail is not None:
+            self._taps["tail"] = tail_taps(self.quant_sp.tail)
 
     # ------------------------------------------------------- weights ----
     def modules(self) -> Dict[str, torch.nn.Module]:
@@ -208,12 +212,17 @@ class GazePipeline:
         """(saliency (B, H, W), spatial conv5 (B, h, w, C)), both float32.
         With ``quant_sp`` the two streams run int8 and their float32
         features go through the fuse/decoder tail in ``dtype``; the tail
-        is ``decoder_impl``'s."""
+        is ``decoder_impl``'s, or, when ``quant_sp.tail`` is set, the int8
+        tail (``models/quant_tail.py``) whatever ``decoder_impl`` is."""
         if self.quant_sp is not None:
             feat = quant_vgg_forward(self.quant_sp.spatial, rgb_in, self.quant_conv,
                                      self._taps["spatial"])
             f_temporal = quant_vgg_forward(self.quant_sp.temporal, flow_in, self.quant_conv,
                                            self._taps["temporal"])
+            if self.quant_sp.tail is not None:
+                sal = quant_tail_forward(self.quant_sp.tail, feat, f_temporal,
+                                         self._taps["tail"])
+                return sal, feat
         elif self.decoder_impl == "deconv":
             return self.sp(rgb_in, flow_in)
         else:

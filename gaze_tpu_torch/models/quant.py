@@ -1,8 +1,10 @@
 """int8 post-training quantization of the SP VGG streams.
 
-Counterpart of ``gaze_tpu/models/quant.py``. Only the two VGG16 encoders
-are quantized; the fuse/decoder tail, AT and LF stay in the pipeline's
-dtype. The scheme, unchanged:
+Counterpart of ``gaze_tpu/models/quant.py``. The two VGG16 encoders are
+quantized here; the fuse/decoder tail stays in the pipeline's dtype
+unless a ``QuantTail`` (``models/quant_tail.py``) is calibrated with
+them; AT and LF stay in the pipeline's dtype. The streams' scheme,
+unchanged:
 
 - weights: per-output-channel symmetric int8, scale = max|w| / 127;
 - activations: conv1_1's signed input on a symmetric grid (zero point 0,
@@ -34,7 +36,7 @@ functions here take modules where the JAX ones take ``params``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +45,9 @@ from gaze_tpu_torch.models.sp import SPNet
 from gaze_tpu_torch.models.vgg import VGG16_STAGES, VGG16Features
 from gaze_tpu_torch.ops.conv_int8 import ConvTap, border_table
 from gaze_tpu_torch.ops.cuda.conv_int8 import conv3x3_int8
+
+if TYPE_CHECKING:
+    from gaze_tpu_torch.models.quant_tail import QuantTail
 
 LAYERS: Tuple[str, ...] = tuple(
     f"conv{s + 1}_{i + 1}" for s, stage in enumerate(VGG16_STAGES) for i in range(len(stage))
@@ -88,19 +93,16 @@ class QuantVGG:
 
 @dataclasses.dataclass(frozen=True)
 class QuantSP:
-    """Quantized two-stream bundle. The JAX package's optional int8
-    fuse/decoder ``tail`` is not ported: anything but None raises."""
+    """Quantized two-stream bundle, plus an optional int8 fuse/decoder
+    ``tail``: with one, the whole saliency head runs int8."""
 
     spatial: QuantVGG
     temporal: QuantVGG
-    tail: object = None
-
-    def __post_init__(self):
-        if self.tail is not None:
-            raise NotImplementedError("quant tail: the int8 fuse/decoder tail is not ported")
+    tail: Optional["QuantTail"] = None
 
     def to(self, device) -> "QuantSP":
-        return QuantSP(self.spatial.to(device), self.temporal.to(device))
+        return QuantSP(self.spatial.to(device), self.temporal.to(device),
+                       None if self.tail is None else self.tail.to(device))
 
 
 def _hwio(vgg: VGG16Features, name: str) -> torch.Tensor:
@@ -280,14 +282,46 @@ def calibrate_sp(
     margin: float = 1.0,
     percentile: Optional[float] = None,
     bf16_stem: bool = False,
+    quant_tail: bool = False,
 ) -> QuantSP:
     """Calibrate and quantize both SP encoder streams from preprocessed
-    NHWC rgb and flow inputs."""
+    NHWC rgb and flow inputs. With ``quant_tail`` also the int8
+    fuse/decoder tail of ``sp`` (its ``SPConfig`` and BatchNorm running
+    statistics), on the float32 conv5 features the QUANTIZED streams give
+    for the same batches: the tail's serving input."""
     spatial = build_quant_vgg(
         sp.spatial, calibrate_vgg(sp.spatial, rgb_batches, margin, percentile), bf16_stem)
     temporal = build_quant_vgg(
         sp.temporal, calibrate_vgg(sp.temporal, flow_batches, margin, percentile), bf16_stem)
-    return QuantSP(spatial, temporal)
+    tail = None
+    if quant_tail:
+        from gaze_tpu_torch.models.quant_tail import calibrate_tail
+
+        taps_s, taps_t = quant_taps(spatial), quant_taps(temporal)
+        feats = [torch.cat([quant_vgg_forward(spatial, r, taps=taps_s),
+                            quant_vgg_forward(temporal, f, taps=taps_t)], dim=-1)
+                 for r, f in zip(rgb_batches, flow_batches)]
+        tail = calibrate_tail(sp, feats, margin, percentile)
+    return QuantSP(spatial, temporal, tail)
+
+
+def preprocessed_batches(pipeline, frame_pairs) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """(rgb, flow) float32 NHWC model inputs of raw uint8 frame pairs
+    through the pipeline's own preprocessing. ``frame_pairs``: (prev_u8,
+    cur_u8) or (prev_u8, cur_u8, flow_img_u8 or None)."""
+    dev = pipeline.device
+    rgb_b: List[torch.Tensor] = []
+    flow_b: List[torch.Tensor] = []
+    with torch.no_grad():
+        for pair in frame_pairs:
+            fl = pair[2] if len(pair) > 2 else None
+            if fl is not None:
+                fl = torch.as_tensor(fl, device=dev)
+            r, f = pipeline.preprocess_pair(torch.as_tensor(pair[0], device=dev),
+                                            torch.as_tensor(pair[1], device=dev), fl)
+            rgb_b.append(r.float())
+            flow_b.append(f.float())
+    return rgb_b, flow_b
 
 
 @torch.inference_mode()
@@ -306,20 +340,10 @@ def calibrate_pipeline_sp(
     frame_pairs: (prev_u8, cur_u8) or (prev_u8, cur_u8, flow_img_u8 or
     None): (B, H, W, 3) frames and an optional (B, h, w, 2) precomputed
     flow image, which takes the TV-L1 solve's place as in ``step``.
+    ``quant_tail``: calibrate the int8 fuse/decoder tail too
+    (:func:`calibrate_sp`).
     """
-    if quant_tail:
-        raise NotImplementedError("quant tail: the int8 fuse/decoder tail is not ported")
     if not frame_pairs:
         raise ValueError("PTQ calibration needs at least one frame pair")
-    dev = pipeline.device
-    rgb_b: List[torch.Tensor] = []
-    flow_b: List[torch.Tensor] = []
-    for pair in frame_pairs:
-        fl = pair[2] if len(pair) > 2 else None
-        if fl is not None:
-            fl = torch.as_tensor(fl, device=dev)
-        r, f = pipeline.preprocess_pair(
-            torch.as_tensor(pair[0], device=dev), torch.as_tensor(pair[1], device=dev), fl)
-        rgb_b.append(r.float())
-        flow_b.append(f.float())
-    return calibrate_sp(pipeline.sp, rgb_b, flow_b, margin, percentile, bf16_stem)
+    rgb_b, flow_b = preprocessed_batches(pipeline, frame_pairs)
+    return calibrate_sp(pipeline.sp, rgb_b, flow_b, margin, percentile, bf16_stem, quant_tail)

@@ -3,10 +3,10 @@
 Counterpart of ``gaze_tpu/models/quant_io.py``, with the same ``.npz``
 format, so a bundle calibrated by either package serves in the other:
 one ``.npz`` with flat dotted keys (``spatial.kernels.conv1_1``,
-``temporal.act_scales.conv3_2``, ...), ``meta.version`` 1, the bf16 stem
-kernel stored as float32 (exact: it is a bf16 cast of float32 weights).
-The JAX package's int8 fuse/decoder tail (``tail.*`` keys) is not
-ported: a bundle that holds one raises ``NotImplementedError``.
+``temporal.act_scales.conv3_2``, ``tail.w_scales.up2``, ...),
+``meta.version`` 1, the bf16 stem kernel stored as float32 (exact: it is
+a bf16 cast of float32 weights), and with an int8 fuse/decoder tail its
+five dicts under ``tail.<field>.<layer>`` and ``tail.num_blocks``.
 
 Unlike the JAX package (whose ``np.savez`` appends ``.npz`` to a bare
 path on save while its load reads the path as given), save and load here
@@ -23,7 +23,9 @@ import numpy as np
 import torch
 
 from gaze_tpu_torch.models.quant import QuantSP, QuantVGG
+from gaze_tpu_torch.models.quant_tail import QuantTail
 
+# QuantVGG's and QuantTail's dicts of tensors by layer name
 _VGG_DICTS = ("kernels", "w_scales", "biases", "act_scales", "col_sums")
 _VERSION = 1
 
@@ -44,13 +46,22 @@ def _vgg_from_numpy(obj: Any) -> QuantVGG:
     )
 
 
+def quant_tail_from_numpy(obj: Any) -> QuantTail:
+    """A JAX ``QuantTail`` as numpy arrays (or a dict with the same field
+    names) -> the port's on the CPU."""
+    dicts = {f: {k: torch.from_numpy(np.array(v)) for k, v in _field(obj, f).items()}
+             for f in _VGG_DICTS}
+    return QuantTail(**dicts, num_blocks=int(_field(obj, "num_blocks")))
+
+
 def quant_sp_from_numpy(bundle: Any) -> QuantSP:
     """A JAX ``QuantSP`` as numpy arrays (``jax.tree.map(np.asarray,
-    qsp)``, or nested dicts with the same field names) -> the port's
-    ``QuantSP`` on the CPU. A tail raises ``NotImplementedError``."""
+    qsp)``, or nested dicts with the same field names), its tail included,
+    -> the port's ``QuantSP`` on the CPU."""
     tail = bundle.get("tail") if isinstance(bundle, Mapping) else getattr(bundle, "tail", None)
     return QuantSP(_vgg_from_numpy(_field(bundle, "spatial")),
-                   _vgg_from_numpy(_field(bundle, "temporal")), tail)
+                   _vgg_from_numpy(_field(bundle, "temporal")),
+                   None if tail is None else quant_tail_from_numpy(tail))
 
 
 def _npz_path(path: str) -> str:
@@ -87,6 +98,11 @@ def save_quant_sp(path: str, qsp: QuantSP) -> None:
     out: Dict[str, np.ndarray] = {"meta.version": np.int64(_VERSION)}
     _flatten_vgg("spatial", qsp.spatial, out)
     _flatten_vgg("temporal", qsp.temporal, out)
+    if qsp.tail is not None:
+        for field in _VGG_DICTS:
+            for k, v in getattr(qsp.tail, field).items():
+                out[f"tail.{field}.{k}"] = v.detach().cpu().numpy()
+        out["tail.num_blocks"] = np.int64(qsp.tail.num_blocks)
     np.savez(_npz_path(path), **out)
 
 
@@ -100,8 +116,14 @@ def load_quant_sp(path: str) -> QuantSP:
     if version != _VERSION:
         raise ValueError(f"unsupported quant bundle version {version} in {path!r} "
                          f"(expected {_VERSION})")
+    tail = None
     if any(k.startswith("tail.") for k in data):
-        raise NotImplementedError(
-            f"{path!r} holds an int8 fuse/decoder tail, which is not ported")
+        tail = {f: {} for f in _VGG_DICTS}
+        for key, v in data.items():
+            if key == "tail.num_blocks":
+                tail["num_blocks"] = int(v)
+            elif key.startswith("tail."):
+                field, name = key[len("tail."):].split(".", 1)
+                tail[field][name] = v
     return quant_sp_from_numpy({"spatial": _unflatten_vgg("spatial", data),
-                                "temporal": _unflatten_vgg("temporal", data)})
+                                "temporal": _unflatten_vgg("temporal", data), "tail": tail})

@@ -155,16 +155,25 @@ class SPNet(nn.Module):
         new BatchNorm running statistics keyed by state-dict name). The
         module's own statistics are left as they are; ``cfg.remat``
         applies."""
-        remat = self.cfg.remat
-        if remat == "none":
+        if self.cfg.remat == "none":
             f_spatial, f_temporal = self.encode(rgb, flow)
         else:
             f_spatial = checkpoint(self.spatial, rgb, use_reentrant=False)
             f_temporal = checkpoint(self.temporal, flow, use_reentrant=False)
+        sal, stats = self.fuse_decode_train(f_spatial, f_temporal)
+        return sal, f_spatial.float(), stats
+
+    def fuse_decode_train(
+        self, f_spatial: torch.Tensor, f_temporal: torch.Tensor
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """:meth:`fuse_decode` with train-mode BatchNorm: (saliency, the
+        decoder's new running statistics keyed by state-dict name), the
+        module's own left as they are. With ``remat="full"`` the decoder
+        runs under ``checkpoint``."""
         fused = self._fuse(f_spatial, f_temporal)
-        if remat == "full":
+        if self.cfg.remat == "full":
             logits, stats = checkpoint(self.decoder.forward_train, fused, use_reentrant=False)
         else:
             logits, stats = self.decoder.forward_train(fused)
         stats = {f"decoder.{k}": v for k, v in stats.items()}
-        return torch.sigmoid(logits.float())[:, 0], f_spatial.float(), stats
+        return torch.sigmoid(logits.float())[:, 0], stats

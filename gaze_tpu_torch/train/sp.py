@@ -12,7 +12,7 @@ and the BatchNorm statistics take the last microbatch's update.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -42,24 +42,32 @@ def create_sp_state(pipeline: GazePipeline, seed: Optional[int] = None) -> Train
     return make_state(pipeline.sp, make_optimizer(cfg.train))
 
 
-def sp_loss(pipeline: GazePipeline, rgb_in: torch.Tensor, flow_in: torch.Tensor,
-            mb: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(focal loss against the Gaussians at ``mb["gaze"]``, weighted by
-    ``mb["valid"]`` where given; the new BatchNorm statistics) of the
-    train-mode SP forward on preprocessed inputs."""
+def saliency_loss(pipeline: GazePipeline, sal: torch.Tensor,
+                  mb: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Focal loss of a (B, H, W) saliency map against the Gaussians at
+    ``mb["gaze"]``, weighted by ``mb["valid"]`` where given."""
     cfg = pipeline.config
     target = render_gaussian(mb["gaze"], cfg.image.height, cfg.image.width,
                              cfg.image.heatmap_sigma)
-    sal, _, stats = pipeline.sp_forward_train(rgb_in, flow_in)
     # Untracked frames carry no supervision: masked out of the loss.
-    return floss(sal, target, cfg.loss, sample_weight=mb.get("valid")), stats
+    return floss(sal, target, cfg.loss, sample_weight=mb.get("valid"))
 
 
-def make_sp_train_step(pipeline: GazePipeline, mesh=None):
-    """``step(state, batch) -> (state, {"loss"})``; ``batch`` holds
-    ``prev``/``cur`` uint8 (B, H, W, 3), ``gaze`` (B, 2), optionally
-    ``valid`` (B,), ``flow_img`` and, with ``train.augment_flip``, a
-    ``_flip`` mask (drawn from (seed, step) when absent)."""
+def sp_loss(pipeline: GazePipeline, rgb_in: torch.Tensor, flow_in: torch.Tensor,
+            mb: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(:func:`saliency_loss`, the new BatchNorm statistics) of the
+    train-mode SP forward on preprocessed inputs."""
+    sal, _, stats = pipeline.sp_forward_train(rgb_in, flow_in)
+    return saliency_loss(pipeline, sal, mb), stats
+
+
+def make_sp_like_train_step(pipeline: GazePipeline, loss: Callable, mesh=None):
+    """``step(state, batch) -> (state, {"loss"})`` around ``loss(pipeline,
+    rgb_in, flow_in, microbatch) -> (loss, new BatchNorm statistics)``;
+    ``batch`` holds ``prev``/``cur`` uint8 (B, H, W, 3), ``gaze`` (B, 2),
+    optionally ``valid`` (B,), ``flow_img`` and, with
+    ``train.augment_flip``, a ``_flip`` mask (drawn from (seed, step) when
+    absent). The SP and QAT steps."""
     cfg = pipeline.config
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
@@ -71,19 +79,24 @@ def make_sp_train_step(pipeline: GazePipeline, mesh=None):
             if cfg.train.augment_flip:
                 mb = apply_hflip(mb, cfg.image.width)
             rgb_in, flow_in = pipeline.preprocess_pair(mb["prev"], mb["cur"], mb.get("flow_img"))
-            return sp_loss(pipeline, rgb_in, flow_in, mb)
+            return loss(pipeline, rgb_in, flow_in, mb)
 
-        (loss, new_bs), grads = microbatch_value_and_grad(
+        (value, new_bs), grads = microbatch_value_and_grad(
             loss_fn, state.params, batch, cfg.train.grad_accum)
         state.apply_gradients(grads, new_batch_stats=new_bs)
-        return state, {"loss": loss}
+        return state, {"loss": value}
 
     return jit_dp_step(step, mesh)
 
 
-def make_sp_eval_step(pipeline: GazePipeline):
-    """``step(state, batch) -> {"aae", "auc"}`` (B,) of the SP saliency
-    map with the running BatchNorm statistics."""
+def make_sp_train_step(pipeline: GazePipeline, mesh=None):
+    """The SP stage's step (:func:`make_sp_like_train_step` of :func:`sp_loss`)."""
+    return make_sp_like_train_step(pipeline, sp_loss, mesh)
+
+
+def make_sp_like_eval_step(pipeline: GazePipeline, saliency: Callable):
+    """``step(state, batch) -> {"aae", "auc"}`` (B,) of ``saliency(state,
+    rgb_in, flow_in) -> (B, H, W)``, without gradients."""
     cfg = pipeline.config
 
     @torch.no_grad()
@@ -91,11 +104,17 @@ def make_sp_eval_step(pipeline: GazePipeline):
         batch = to_device(batch, pipeline.device)
         rgb_in, flow_in = pipeline.preprocess_pair(batch["prev"], batch["cur"],
                                                    batch.get("flow_img"))
-        sal, _ = state.module(rgb_in, flow_in)
+        sal = saliency(state, rgb_in, flow_in)
         return {"aae": aae(sal, batch["gaze"], cfg.camera),
                 "auc": auc_judd(sal, batch["gaze"])}
 
     return step
+
+
+def make_sp_eval_step(pipeline: GazePipeline):
+    """AAE and AUC of the SP saliency map with the running BatchNorm
+    statistics."""
+    return make_sp_like_eval_step(pipeline, lambda state, rgb, flow: state.module(rgb, flow)[0])
 
 
 def extract_fixation_weights(pipeline: GazePipeline, sp_state: StateDict):

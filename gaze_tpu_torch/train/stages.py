@@ -1,23 +1,24 @@
-"""The trainer: the SP, AT and LF stages in order, on GTEA recordings or
-the synthetic corpus.
+"""The trainer: the SP, QAT, AT and LF stages in order, on GTEA
+recordings or the synthetic corpus.
 
 Counterpart of the training stages of ``gaze_tpu/cli.py``
-(``run_train_sp``, ``run_train_lstm``, ``run_train_late`` and their batch
-sources). Each stage trains one of the pipeline's modules in place,
-writes periodic checkpoints to ``<save_dir>/<stage>`` (or the stage's
-``*_ckpt``), validates and tracks the best checkpoint in
-``<save_dir>/<stage>_best``, and ends with the best (else the latest)
-state restored into the pipeline. A run resumes from the stage's latest
-checkpoint. Usage::
+(``run_train_sp``, ``run_train_qat``, ``run_train_lstm``,
+``run_train_late`` and their batch sources). Each stage trains one of
+the pipeline's modules in place, writes periodic checkpoints to
+``<save_dir>/<stage>`` (or the stage's ``*_ckpt``), validates and tracks
+the best checkpoint in ``<save_dir>/<stage>_best``, and ends with the
+best (else the latest) state restored into the pipeline. A run resumes
+from the stage's latest checkpoint. Usage::
 
     from gaze_tpu_torch.core.config import parity_config
     from gaze_tpu_torch.models.pipeline import GazePipeline
     from gaze_tpu_torch.train.stages import (
-        StageOptions, run_train_late, run_train_lstm, run_train_sp)
+        StageOptions, run_train_late, run_train_lstm, run_train_qat, run_train_sp)
 
     pipe = GazePipeline(parity_config())          # on the card
     opts = StageOptions(batch_size=8, epochs=1, steps_per_epoch=100)
     sp = run_train_sp(opts, pipe)
+    sp = run_train_qat(opts, pipe, sp)            # optional: int8-aware SP
     at = run_train_lstm(opts, pipe, sp)
     lf = run_train_late(opts, pipe, sp, at)       # pipe now holds all three
 
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from gaze_tpu_torch.core.checkpoint import (
+    latest_step,
     restore_best_or_latest,
     restore_checkpoint,
     save_best_checkpoint,
@@ -56,7 +58,8 @@ from gaze_tpu_torch.data.synthetic import (
     generate_sequence,
 )
 from gaze_tpu_torch.models.pipeline import GazePipeline
-from gaze_tpu_torch.models.weights import StateDict
+from gaze_tpu_torch.models.qat import load_act_scales, save_act_scales
+from gaze_tpu_torch.models.weights import StateDict, load_state
 from gaze_tpu_torch.train.at import (
     build_at_validation_windows,
     build_tbptt_schedule,
@@ -75,6 +78,11 @@ from gaze_tpu_torch.train.lf import (
     make_lf_eval_step,
     make_lf_rollout_train_step,
     make_lf_train_step,
+)
+from gaze_tpu_torch.train.qat import (
+    calibrate_qat_scales,
+    make_qat_eval_step,
+    make_qat_train_step,
 )
 from gaze_tpu_torch.train.sp import (
     create_sp_state,
@@ -108,6 +116,8 @@ class StageOptions:
     data_root: Optional[str] = None   # a GTEA tree; None = the synthetic corpus
     test_subject: Optional[str] = None   # held out of training (default: the first)
     precomputed_flow: str = "auto"    # GTEA flow images: "auto", "on" or "off"
+    quant_calib_batches: int = 8      # training batches that calibrate QAT's scales
+    quant_percentile: Optional[float] = None   # calibrate at this percentile of |x|, not the max
 
 
 def _flow_mode(opts: StageOptions) -> Optional[bool]:
@@ -174,18 +184,14 @@ def _snapshot(module: torch.nn.Module) -> StateDict:
     return {k: v.detach().clone() for k, v in module.state_dict().items()}
 
 
-def run_train_sp(opts: StageOptions, pipeline: GazePipeline) -> StateDict:
-    """SP stage: prefetched batches -> train step; periodic checkpoints;
-    validation AAE with best tracking (every ``eval_every`` steps and at
-    the end). Returns the best SP state dict, also left in
-    ``pipeline.sp``."""
+def _run_sp_like_stage(opts: StageOptions, pipeline: GazePipeline, state: TrainState,
+                       ckpt_dir: str, step_fn, eval_fn, stage: str) -> StateDict:
+    """The loop the SP and QAT stages share: prefetched batches -> train
+    step; periodic checkpoints; validation AAE with best tracking (every
+    ``eval_every`` steps and at the end). Returns the best SP state dict,
+    also left in ``pipeline.sp``."""
     cfg = pipeline.config
-    state = create_sp_state(pipeline)
-    ckpt_dir = opts.sp_ckpt or os.path.join(opts.save_dir, "sp")
-    restore_checkpoint(ckpt_dir, state)
-    step_fn = make_sp_train_step(pipeline)
-    eval_fn = make_sp_eval_step(pipeline)
-    logger = StepLogger("sp", every=opts.log_every)
+    logger = StepLogger(stage, every=opts.log_every)
 
     def validate_and_track() -> None:
         val = _val_aae(eval_fn, state, next(iter(_batches(opts, cfg, train=False))))
@@ -204,6 +210,56 @@ def run_train_sp(opts: StageOptions, pipeline: GazePipeline) -> StateDict:
     save_checkpoint(ckpt_dir, state.step, state)
     restore_best_or_latest(ckpt_dir, state)
     return _snapshot(pipeline.sp)
+
+
+def run_train_sp(opts: StageOptions, pipeline: GazePipeline) -> StateDict:
+    """SP stage (``_run_sp_like_stage``) from fresh weights, or resumed
+    from ``<save_dir>/sp``'s latest checkpoint."""
+    state = create_sp_state(pipeline)
+    ckpt_dir = opts.sp_ckpt or os.path.join(opts.save_dir, "sp")
+    restore_checkpoint(ckpt_dir, state)
+    return _run_sp_like_stage(opts, pipeline, state, ckpt_dir, make_sp_train_step(pipeline),
+                              make_sp_eval_step(pipeline), "sp")
+
+
+def _calibration_pairs(opts: StageOptions, cfg: PipelineConfig) -> List[tuple]:
+    """The first ``quant_calib_batches`` training batches as (prev, cur,
+    flow_img or None) frame pairs, for activation-scale calibration."""
+    pairs = []
+    for batch in _batches(opts, cfg, train=True):
+        pairs.append((batch["prev"], batch["cur"], batch.get("flow_img")))
+        if len(pairs) >= opts.quant_calib_batches:
+            break
+    return pairs
+
+
+def run_train_qat(opts: StageOptions, pipeline: GazePipeline,
+                  sp_state: StateDict) -> StateDict:
+    """QAT stage: fine-tune the SP streams through the deployment int8
+    grids (``train/qat.py``), from the trained ``sp_state``, checkpoints
+    in ``<save_dir>/sp_qat`` (and ``sp_qat_best``) with the scales file
+    ``qat_act_scales.npz`` beside them. A fresh start calibrates the
+    scales once, from the first ``quant_calib_batches`` training batches
+    (at ``quant_percentile``), and saves them; a resumed run restores the
+    latest checkpoint and keeps the saved scales, the grids its weights
+    adapted to (the JAX CLI calibrates again from the fine-tuned weights
+    and overwrites the file). Returns the best state dict, also left in
+    ``pipeline.sp``."""
+    cfg = pipeline.config
+    state = create_sp_state(pipeline)
+    load_state(pipeline.sp, sp_state)
+    ckpt_dir = os.path.join(opts.save_dir, "sp_qat")
+    restore_checkpoint(ckpt_dir, state)
+    scales = load_act_scales(ckpt_dir) if latest_step(ckpt_dir) is not None else None
+    if scales is None:
+        pairs = _calibration_pairs(opts, cfg)
+        if not pairs:
+            raise ValueError("QAT: no training batches for activation-scale calibration")
+        scales = calibrate_qat_scales(pipeline, pairs, percentile=opts.quant_percentile)
+        save_act_scales(ckpt_dir, scales)
+    return _run_sp_like_stage(opts, pipeline, state, ckpt_dir,
+                              make_qat_train_step(pipeline, scales),
+                              make_qat_eval_step(pipeline, scales), "qat")
 
 
 def _extract_video_weights(opts: StageOptions, pipeline: GazePipeline,

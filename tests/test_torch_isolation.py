@@ -37,7 +37,6 @@ from gaze_tpu_torch.evaluation.rollout import (
     rollout_eval_videos,
 )
 from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
-from gaze_tpu_torch.models.quant import QuantSP, calibrate_pipeline_sp
 from gaze_tpu_torch.ops import cuda
 from gaze_tpu_torch.ops.conv_int8 import ConvTap, conv3x3_int8_plain
 from gaze_tpu_torch.ops.cuda.conv_int8 import conv3x3_int8
@@ -48,6 +47,7 @@ from gaze_tpu_torch.ops.warp import warp3_plain
 from gaze_tpu_torch.serve import StreamServer
 from gaze_tpu_torch.train.at import make_at_tbptt_step, make_at_train_step
 from gaze_tpu_torch.train.lf import make_lf_rollout_train_step, make_lf_train_step
+from gaze_tpu_torch.train.qat import make_qat_train_step
 from gaze_tpu_torch.train.sp import make_sp_train_step
 from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
 
@@ -76,7 +76,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert {"train/common.py", "train/sp.py", "train/at.py", "train/lf.py", "train/stages.py",
             "core/checkpoint.py", "data/augment.py", "data/prefetch.py",
             "utils/logging.py", "data/video.py", "data/native_io.py", "data/gtea.py",
-            "data/flow_extract.py"} <= names
+            "data/flow_extract.py", "models/quant_tail.py", "models/qat.py", "train/qat.py",
+            "ops/int8_gemm.py"} <= names
     bad = {str(p.relative_to(ROOT)): sorted(imported_roots(p) & set(FORBIDDEN))
            for p in sources}
     assert not {k: v for k, v in bad.items() if v}
@@ -119,6 +120,14 @@ def test_fresh_interpreter_runs_a_cpu_step_without_jax():
         pipe = gaze_tpu_torch.GazePipeline(cfg, dtype=torch.bfloat16, device="cpu", quant_sp=qsp)
         hm, gaze = gaze_tpu_torch.run_clip(pipe, frames, np.ones((1, 3), np.float32))
         assert hm.shape == (1, 2, 32, 32) and bool(torch.isfinite(hm).all())
+        # the int8 fuse/decoder tail on top of the int8 streams
+        qtail = gaze_tpu_torch.calibrate_pipeline_sp(pipe, [(frames[:, 0], frames[:, 1])],
+                                                     quant_tail=True)
+        tailed = gaze_tpu_torch.GazePipeline(cfg, dtype=torch.bfloat16, device="cpu",
+                                             quant_sp=qtail)
+        hm, _ = gaze_tpu_torch.run_clip(tailed, frames, np.ones((1, 3), np.float32))
+        assert isinstance(qtail.tail, gaze_tpu_torch.QuantTail)
+        assert bool(torch.isfinite(hm).all())
         # the serving and evaluation surface: two server ticks, a rollout
         srv = gaze_tpu_torch.StreamServer(cfg, pipe.state_dicts(), 2, dtype=torch.bfloat16,
                                           quant_sp=qsp, device="cpu")
@@ -129,7 +138,8 @@ def test_fresh_interpreter_runs_a_cpu_step_without_jax():
         s = gaze_tpu_torch.rollout_eval_arrays(pipe, frames, np.zeros((1, 3, 2), np.float32),
                                                np.ones((1, 3), np.float32), chunk_len=2)
         assert s[2].tolist() == [2.0] and np.isfinite(s[0]).all()
-        # the trainer: SP -> AT -> LF, one step each, checkpoints and all
+        # the trainer: SP -> QAT -> AT -> LF, one step each, checkpoints and all
+        import os
         import tempfile
         from gaze_tpu_torch.train import stages
         cfg = PipelineConfig(
@@ -143,12 +153,12 @@ def test_fresh_interpreter_runs_a_cpu_step_without_jax():
         pipe = gaze_tpu_torch.GazePipeline(cfg, device="cpu")
         with tempfile.TemporaryDirectory() as d:
             opts = stages.StageOptions(batch_size=2, steps_per_epoch=1, save_dir=d)
-            sp = stages.run_train_sp(opts, pipe)
+            sp = stages.run_train_qat(opts, pipe, stages.run_train_sp(opts, pipe))
+            assert os.path.exists(os.path.join(d, "sp_qat", "qat_act_scales.npz"))
             lf = stages.run_train_late(opts, pipe, sp, stages.run_train_lstm(opts, pipe, sp))
         assert lf.step == 1
         # the GTEA data layer: frames written with PIL, the manifest, flow
         # images on the CPU, a rollout over the tree
-        import os
         from PIL import Image
         from gaze_tpu_torch.data.flow_extract import FlowExtractSpec
         with tempfile.TemporaryDirectory() as d:
@@ -209,13 +219,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert next(device_prefetch(iter([{"x": np.zeros(1)}]), "cpu"))["x"].device.type == "cpu"
 
 
-@pytest.mark.parametrize("make", ["sp", "at", "at_tbptt", "lf", "lf_rollout"])
+@pytest.mark.parametrize("make", ["sp", "at", "at_tbptt", "lf", "lf_rollout", "qat"])
 def test_data_parallel_training_waits_for_the_distributed_slice(make):
     """Each train step takes ``jit_dp_step``'s ``mesh=``, which raises
     until DDP is ported."""
     pipe = GazePipeline(tiny_config(), device="cpu")
     frozen = {"sp": pipe.sp.state_dict(), "at": pipe.lstm.state_dict()}
+    scales = {s: {"conv1_1": torch.ones(())} for s in ("spatial", "temporal")}
     fn = {"sp": lambda **kw: make_sp_train_step(pipe, **kw),
+          "qat": lambda **kw: make_qat_train_step(pipe, scales, **kw),
           "at": lambda **kw: make_at_train_step(pipe, **kw),
           "at_tbptt": lambda **kw: make_at_tbptt_step(pipe, **kw),
           "lf": lambda **kw: make_lf_train_step(pipe, frozen, **kw),
@@ -226,27 +238,22 @@ def test_data_parallel_training_waits_for_the_distributed_slice(make):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(quant_tail=True),
     dict(server_mesh=True),
     dict(rollout_mesh=True),
     dict(rollout_chunk_fn_mesh=True),
-    dict(calibrate_quant_tail=True),
     dict(rollout_videos_mesh=True),
 ])
 def test_unported_options_raise(kwargs):
     """bf16, the half-grid flow, ``quant_sp``, the flow-image input, both
     AT poolings and all three decoders are ported (held against JAX in
-    ``test_torch_options.py``); the int8 tail and the sharded server and
-    rollouts (of arrays and of GTEA videos) are not."""
+    ``test_torch_options.py``), and the int8 tail
+    (``test_torch_quant_tail.py``); the sharded server and rollouts (of
+    arrays and of GTEA videos) are not."""
     pipe = GazePipeline(tiny_config(), device="cpu")
     f = np.zeros((1, 2, 32, 32, 3), np.uint8)
     (what,) = kwargs
     with pytest.raises(NotImplementedError):
-        if what == "quant_tail":
-            QuantSP(None, None, tail=object())
-        elif what == "calibrate_quant_tail":
-            calibrate_pipeline_sp(pipe, [(f[:, 0], f[:, 1])], quant_tail=True)
-        elif what == "server_mesh":
+        if what == "server_mesh":
             StreamServer(tiny_config(), pipe.state_dicts(), 2, device="cpu", mesh=object())
         elif what == "rollout_mesh":
             rollout_eval_arrays(pipe, f, np.zeros((1, 2, 2)), np.ones((1, 2)), mesh=object())

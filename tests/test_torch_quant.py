@@ -58,6 +58,7 @@ from gaze_tpu.models.pipeline import GazePipeline as JGazePipeline
 from gaze_tpu_torch.models import quant, quant_io
 from gaze_tpu_torch.models.at import fixation_pool
 from gaze_tpu_torch.models.pipeline import GazePipeline
+from gaze_tpu_torch.models.quant_tail import QuantTail
 from gaze_tpu_torch.models.weights import torch_state_from_jax
 from gaze_tpu_torch.ops.conv_int8 import ConvTap, conv3x3_int8_plain, maxpool2x2_int8
 from gaze_tpu_torch.ops.cuda.conv_int8 import conv3x3_int8
@@ -377,8 +378,11 @@ def test_forward_has_teeth(forward_setup):
 def test_forward_options():
     with pytest.raises(ValueError, match="conv_impl"):
         quant.quant_vgg_forward(None, torch.zeros(1, 4, 4, 3), conv_impl="cudnn")
-    with pytest.raises(NotImplementedError, match="tail"):
-        quant.QuantSP(None, None, tail=object())
+    # a tail is carried, to the device too (the int8 tail is held against
+    # JAX in test_torch_quant_tail.py)
+    t = QuantTail({}, {}, {}, {}, {"out": torch.zeros(1)}, num_blocks=0)
+    assert quant.QuantSP(None, None, tail=t).tail is t
+    assert torch.equal(t.to("cpu").col_sums["out"], t.col_sums["out"])
 
 
 # ---------------------------------------------------------------- goldens
@@ -492,9 +496,10 @@ def test_jax_bundle_round_trip(forward_setup, tmp_path):
 def test_bundle_suffix_and_tail(narrow_calibration, tmp_path):
     """A bare path saves to ``<path>.npz`` and loads from it (the JAX
     package's load reads the bare path and fails: not copied); a bundle
-    with an int8 tail is refused."""
+    with an int8 tail loads with it (both ways against the JAX package in
+    test_torch_quant_tail.py)."""
     _, _, pipe, pairs, _ = narrow_calibration
-    tq = quant.calibrate_pipeline_sp(pipe, pairs[:1])
+    tq = quant.calibrate_pipeline_sp(pipe, pairs[:1], quant_tail=True)
     bare = str(tmp_path / "bundle")
     quant_io.save_quant_sp(bare, tq)
     assert os.path.exists(bare + ".npz") and not os.path.exists(bare)
@@ -502,8 +507,7 @@ def test_bundle_suffix_and_tail(narrow_calibration, tmp_path):
     assert torch.equal(back.spatial.kernels["conv2_1"], tq.spatial.kernels["conv2_1"])
     with pytest.raises(FileNotFoundError):
         jquant_io.load_quant_sp(bare)
-    with np.load(bare + ".npz") as f:
-        data = {k: f[k] for k in f.files}
-    np.savez(str(tmp_path / "tail.npz"), **data, **{"tail.num_blocks": np.int64(2)})
-    with pytest.raises(NotImplementedError, match="tail"):
-        quant_io.load_quant_sp(str(tmp_path / "tail.npz"))
+    assert back.tail.num_blocks == tq.tail.num_blocks == 4
+    for field in ("kernels", "w_scales", "biases", "act_scales", "col_sums"):
+        for k, v in getattr(tq.tail, field).items():
+            assert torch.equal(getattr(back.tail, field)[k], v), (field, k)
