@@ -75,6 +75,26 @@ synthetic corpus:
   directory removed afterwards (``sp_qat/qat_act_scales.npz`` checked),
   then a rollout evaluation of the restored best weights.
 
+Then the distributed phases, one process per card over
+``torch.distributed``:
+
+- dist_init: a world-1 NCCL process group (``file://`` rendezvous in a
+  temporary directory) and the port's global mesh on this card;
+- dp_train: 2 SP steps at B=8 from train_sp's initial state and batches
+  with and without the mesh (every K1/K2 call of the mesh steps held to
+  its plain version, exact launches), one TBPTT AT step from the trained
+  LSTM and one teacher-forced LF step, each held to its step without a
+  mesh; the mesh step's wall in turns with the plain one, its device
+  busy time, the gradient all-reduce by CUDA events and its bytes;
+- dp_gloo2: this script started twice as the ranks of a gloo group on
+  the one card, the same 2 SP steps at a global B=8 (4 rows a rank): the
+  ranks bit-equal, and within the bands of the world-1 steps;
+- dist_serve: the serve phase's script on a turbo
+  ``DistributedStreamServer`` of 16 slots and on a ``StreamServer`` over
+  the mesh, gaze bit-equal to the serve phase's, exact launches a tick;
+- dist_rollout: ``rollout_eval_arrays(mesh=)`` over the rollout phase's
+  videos, sums equal to that phase's.
+
 Then the data layer, on a GTEA tree the script writes to a temporary
 directory removed at the end (8 videos x 33 frames at the native 720x960,
 gaze txt with untracked rows, fixsac txt for four videos, one video
@@ -190,6 +210,24 @@ TRAIN_B, TRAIN_CPU_B, TRAIN_STEPS, TRAIN_LR = 8, 2, 5, 1e-4
 # noise moves by +-lr on either side.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_STATS_RTOL = 1e-4, 2.5e-3, 1e-4
 REMAT_GRAD_RTOL = 1e-3      # remat="encoders" vs "none" on the card, relative L2
+# The distributed phases: DP_STEPS SP steps at world size 1 over NCCL and
+# at world size 2 over gloo (two processes on this card, each feeding 4
+# of the 8 rows; NCCL refuses two ranks on one device), held to the steps
+# without a mesh: the first step's applied gradient (the all-reduced one
+# under a mesh) within TRAIN_GRAD_RTOL of the model's relative L2
+# (grad_compare), which a gradient of the wrong sign, rows or
+# denominators exceeds many times over, though Adam's first update is
+# lr sign(g) whatever its scale, and its BatchNorm statistics within
+# TRAIN_STATS_RTOL; every step's loss within DP_LOSS_RTOL relative;
+# parameters within 2 lr per step (Adam's first step is a sign test, as
+# train_sp's band says). Later steps' gradients and statistics start from
+# parameters the sign test moved by +-lr wherever a gradient lies in
+# float32 noise, so they are reported, not held (dp_compare). At world 1
+# the mesh path takes BatchNorm's mean as an all-reduced sum over the
+# count where the plain path calls torch.mean, so the two differ by
+# float32 rounding. The two gloo ranks must be bit-equal.
+DP_STEPS, DP_LOSS_RTOL = 2, 1e-5
+DP_GLOO_RANKS, DP_GLOO_TIMEOUT = 2, 180
 # AT: fixation weights of 4 synthetic videos of 97 frames (about 9
 # fixations each), TBPTT windows of 8, 2 epochs.
 AT_VIDEOS, AT_FRAMES, AT_SEED, AT_SEQ_LEN, AT_EPOCHS = 4, 97, 100, 8, 2
@@ -605,7 +643,8 @@ def serve_phase(torch, cuda, turbo, frames, fixsac, rng):
     """The turbo ``StreamServer``: a run of submit() calls with attach and
     detach under way, then direct ticks; and a second server ticked over
     the turbo clip, held against ``run_clip``'s outputs. Returns the
-    submit run's launch counts."""
+    submit run's launch counts, its frame batches, its gaze per frame and
+    the direct ticks' gaze."""
     from gaze_tpu_torch.serve import StreamServer
 
     cfg, dtype, qsp, weights = turbo["cfg"], turbo["dtype"], turbo["qsp"], turbo["weights"]
@@ -694,10 +733,10 @@ def serve_phase(torch, cuda, turbo, frames, fixsac, rng):
                 fail(f"serve: frame {f} slot {i}: gaze {g[i].tolist()} outside the image")
 
     # direct ticks: their wall times, and a tick's device busy time
-    tick_ms = []
+    tick_ms, tick_gaze = [], []
     for t in range(SERVE_DIRECT_TICKS):
         t0 = time.perf_counter()
-        srv.tick(batches[t])
+        tick_gaze.append(srv.tick(batches[t])["gaze"])
         tick_ms.append((time.perf_counter() - t0) * 1e3)
     _, prof = device_profile(torch, lambda: [srv.tick(batches[t]) for t in range(3)])
     tick_busy_ms = busy_ms(prof) / 3
@@ -733,7 +772,8 @@ def serve_phase(torch, cuda, turbo, frames, fixsac, rng):
         fail(f"serve: gaze differs from run_clip's at [stream, frame] {clip_mismatched}")
     if not clip_diff <= SERVE_CLIP_TOL:
         fail(f"serve: heatmaps differ from run_clip's by {clip_diff} > {SERVE_CLIP_TOL}")
-    return submit_launches
+    return {"launches": submit_launches, "batches": batches, "results": results,
+            "tick_gaze": tick_gaze}
 
 
 
@@ -741,7 +781,7 @@ def rollout_phase(torch, cuda, turbo):
     """``rollout_eval_arrays`` with the turbo pipeline over V synthetic
     videos at two chunk lengths, and a short CPU run held to the card's
     within bands derived from the two runs' per-frame outputs. Returns
-    the launch counts of the chunk_len-8 run."""
+    the launch counts of the chunk_len-8 run, its inputs and its sums."""
     from gaze_tpu_torch.data.synthetic import SyntheticSpec, generate_sequence
     from gaze_tpu_torch.evaluation.rollout import rollout_eval_arrays
     from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
@@ -811,7 +851,8 @@ def rollout_phase(torch, cuda, turbo):
     if cpu_sums[2][0] != card_sums[2][0] or not (d_aae <= aae_band and d_auc <= auc_band):
         fail(f"rollout: card vs CPU: count {card_sums[2][0]} vs {cpu_sums[2][0]}, AAE sum "
              f"{d_aae} (band {aae_band}), AUC sum {d_auc} (band {auc_band})")
-    return launches
+    return {"launches": launches, "inputs": (frames, gaze, fixsac, valid),
+            "sums": runs[ROLL_CHUNKS[0]][0]}
 
 
 def tail_phase(torch, dev, cuda, turbo, frames, fixsac):
@@ -2389,6 +2430,503 @@ def data_stages_phase(torch, cuda, root: str):
     return out["off"]["launches"], out["auto"]["launches"]
 
 
+def dp_config():
+    """train_sp's configuration: parity preset, f32, B=8, lr 1e-4."""
+    from gaze_tpu_torch.core.config import parity_config
+
+    return dataclasses.replace(parity_config(), train=dataclasses.replace(
+        parity_config().train, batch_size=TRAIN_B, learning_rate=TRAIN_LR))
+
+
+def state_snapshot(state):
+    """A TrainState's module state dict and optimizer moments, on the host."""
+    return ({k: v.detach().cpu().clone() for k, v in state.module.state_dict().items()},
+            [t.detach().cpu().clone() for t in state.opt_state.mu + state.opt_state.nu])
+
+
+def capture_grads(state, into: list):
+    """``state`` with every update recording the gradient it applies
+    (the all-reduced one under a mesh) into ``into``, one list per step,
+    on the card."""
+    apply = state.apply_gradients
+
+    def capturing(grads, new_batch_stats=None):
+        into.append([g.detach().clone() for g in grads])
+        return apply(grads, new_batch_stats)
+
+    state.apply_gradients = capturing
+    return state
+
+
+def dp_compare(got, want, losses_got, losses_want, grads_got, grads_want, names):
+    """Two runs of the same steps from the same state, given the state
+    snapshots, losses and applied gradients of each step. Held: the
+    first step's gradient (model relative L2, as grad_compare) and
+    BatchNorm statistics (as stats_rel_err), which both runs compute at
+    the same parameters on the same rows; every step's loss (relative);
+    the parameters after the last step (2 lr per step). Later steps'
+    gradients and statistics are reported: they are computed at
+    parameters that Adam's sign test has already moved by +-lr wherever
+    a gradient lies in float32 noise."""
+    steps = len(got)
+    (sd_g, _), (sd_w, _) = got[-1], want[-1]
+    stats = [k for k in sd_w if k.endswith((".running_mean", ".running_var"))]
+    params = [k for k in sd_w if k not in stats and sd_w[k].is_floating_point()]
+    grads = [grad_compare(g, w, names) for g, w in zip(grads_got, grads_want)]
+    out = {"grad_rel_l2_by_step": [g["model_rel_l2"] for g in grads],
+           "grad_elem_rel_max_by_step": [g["elem_rel_max"] for g in grads],
+           "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(losses_got, losses_want)),
+           "params_max_abs_diff": max(float((sd_g[k] - sd_w[k]).abs().max()) for k in params),
+           "params_abs_band": 2 * TRAIN_LR * steps + 1e-6}
+    if stats:
+        out["batch_stats_rel_err_by_step"] = [
+            stats_rel_err({k: g[0][k] for k in stats}, {k: w[0][k] for k in stats})
+            for g, w in zip(got, want)]
+    out["ok"] = (len(grads) == steps
+                 and out["grad_rel_l2_by_step"][0] <= TRAIN_GRAD_RTOL
+                 and out["loss_rel_err"] <= DP_LOSS_RTOL
+                 and out["params_max_abs_diff"] <= out["params_abs_band"]
+                 and out.get("batch_stats_rel_err_by_step", [0.0])[0] <= TRAIN_STATS_RTOL)
+    return out
+
+
+def dist_init_phase(torch, rendezvous: str):
+    """World size 1 over NCCL: the port's global mesh on this card."""
+    import torch.distributed as dist
+
+    from gaze_tpu_torch.core.distributed import global_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}", world_size=1, rank=0)
+    mesh = global_mesh()
+    emit("dist_init", backend=dist.get_backend(), world_size=dist.get_world_size(),
+         rank=dist.get_rank(), device=str(mesh.device), mesh_size=mesh.size,
+         mesh_rank=mesh.rank)
+    if mesh.size != 1 or mesh.rank != 0 or mesh.device.type != "cuda":
+        fail(f"dist_init: mesh {mesh}")
+    return mesh
+
+
+def dp_train_phase(torch, cuda, mesh, sp_state, at_state):
+    """The data-parallel steps at world size 1 over NCCL against the same
+    steps without a mesh: DP_STEPS SP steps from train_sp's initial state
+    and batches (every K1/K2 call held to its plain version, exact
+    launches per step), one TBPTT AT step from train_at's trained LSTM
+    and one teacher-forced LF step from train_lf's initial state on its
+    first batch; then the SP step's wall time in turns with the step
+    without a mesh, its device busy time, and the gradient all-reduce by
+    CUDA events. Returns the launch counts and the SP mesh run (the
+    reference of dp_gloo2)."""
+    from gaze_tpu_torch.core.distributed import all_reduce_flat_
+    from gaze_tpu_torch.models.pipeline import GazePipeline
+    from gaze_tpu_torch.train.at import build_tbptt_schedule, make_at_tbptt_step
+    from gaze_tpu_torch.train.common import make_optimizer, make_state
+    from gaze_tpu_torch.train.lf import create_lf_state, make_lf_train_step
+    from gaze_tpu_torch.train.sp import create_sp_state, make_sp_train_step
+
+    cfg = dp_config()
+    per_step = flow_launches(cfg, 1)
+    pipe = GazePipeline(cfg, seed=0)
+    batches = sp_batches(cfg, TRAIN_B, DP_STEPS)      # train_sp's first batches
+    total = {k: 0 for k in per_step}
+
+    def run(make, create, batches, checked, extra=lambda b, m: b):
+        """Fresh state, the steps over ``batches``: (snapshots after each
+        step, losses, launches per step, the kernel check, the last
+        state, the gradient each step applied, on the host)."""
+        grads = []
+        state = capture_grads(create(), grads)
+        step = make()
+        snaps, losses, launches, inside, metrics = [], [], [], None, None
+        for b in batches:
+            torch.cuda.synchronize()
+            cuda.reset_launch_counts()
+            with CheckedKernels(torch) if checked else contextlib.nullcontext() as chk:
+                state, metrics = step(state, extra(b, metrics))
+                torch.cuda.synchronize()
+            if checked:
+                inside = chk.check("dp_train", {"warp3": per_step["warp3"],
+                                                "tvl1_pd": per_step["tvl1_pd"]})
+            launches.append(launch_counts(cuda))
+            losses.append(float(metrics["loss"]))
+            snaps.append(state_snapshot(state))
+            grads[-1] = [g.cpu() for g in grads[-1]]
+        del state.apply_gradients                      # the timed steps record nothing
+        return snaps, losses, launches, inside, state, grads
+
+    def sp_create():
+        return create_sp_state(pipe)                   # train_sp's initial state
+
+    # SP: DP_STEPS steps without and with the mesh, from the same state
+    ref = run(lambda: make_sp_train_step(pipe), sp_create, batches, False)
+    dp = run(lambda: make_sp_train_step(pipe, mesh), sp_create, batches, True)
+    for i, got in enumerate(dp[2]):
+        if got != per_step:
+            fail(f"dp_train sp: step {i} launched {got}, expected {per_step}")
+        total = {k: total[k] + got[k] for k in total}
+    names = dp[4].param_names
+    sp_cmp = dp_compare(dp[0], ref[0], dp[1], ref[1], dp[5], ref[5], names)
+    sp_inside = dp[3]
+    sp_run = {"snapshots": dp[0], "losses": dp[1], "grads": dp[5], "names": names}
+
+    # the SP step's wall in turns with the step without a mesh, from
+    # their states; the device busy time of a mesh step; the all-reduce
+    ref_state, dp_state = ref[4], dp[4]
+    steps = {"plain": make_sp_train_step(pipe), "mesh": make_sp_train_step(pipe, mesh)}
+    states = {"plain": ref_state, "mesh": dp_state}
+    walls = {"plain": [], "mesh": []}   # from the states after DP_STEPS steps
+    for turn in ("plain", "mesh", "mesh", "plain", "plain", "mesh"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states[turn], _ = steps[turn](states[turn], batches[0])
+        torch.cuda.synchronize()
+        walls[turn].append((time.perf_counter() - t0) * 1e3)
+    _, prof = device_profile(torch, lambda: steps["mesh"](states["mesh"], batches[1]))
+    busy = busy_ms(prof)
+    nccl_us, nccl_n = device_us(prof, "nccl")
+    grads = [torch.zeros_like(p) for p in dp_state.params]
+    loss = torch.zeros((), device=pipe.device)
+    grad_bytes = 4 * (sum(g.numel() for g in grads) + 1)
+    allreduce_ms = cuda_ms(torch, lambda: all_reduce_flat_(grads + [loss.reshape(1)], mesh), 10)
+    del steps, states, ref_state, dp_state, grads, ref, dp
+    torch.cuda.empty_cache()
+
+    # AT: one TBPTT step from the trained LSTM on windows of numpy-seeded
+    # fixation weights (two lanes of different lengths: unequal masks)
+    at_cfg = cfg.at
+    rng = np.random.default_rng(AT_SEED)
+    videos = [rng.uniform(0, 1, (n, at_cfg.feature_dim)).astype(np.float32) for n in (9, 5)]
+    sched = build_tbptt_schedule(videos, AT_SEQ_LEN, 2)[:1]
+    shape = (2, at_cfg.num_layers, at_cfg.hidden_size)
+
+    def at_create():
+        pipe.lstm.load_state_dict(at_state)
+        return make_state(pipe.lstm, make_optimizer(cfg.train))
+
+    def with_carry(b, _):
+        z = torch.zeros(shape, device=pipe.device)
+        return dict(b, carry_c=z, carry_h=z)
+
+    at_ref = run(lambda: make_at_tbptt_step(pipe), at_create, sched, False, with_carry)
+    at_dp = run(lambda: make_at_tbptt_step(pipe, mesh), at_create, sched, False, with_carry)
+    at_cmp = dp_compare(at_dp[0], at_ref[0], at_dp[1], at_ref[1], at_dp[5], at_ref[5],
+                        at_dp[4].param_names)
+
+    # LF: one teacher-forced step on the frozen trained SP and AT, from
+    # train_lf's initial state and first batch
+    frozen = {"sp": sp_state, "at": at_state}
+    lf_batch = sp_batches(cfg, TRAIN_B, 1, seed=1)
+    lf_ref = run(lambda: make_lf_train_step(pipe, frozen), lambda: create_lf_state(pipe),
+                 lf_batch, False)
+    lf_dp = run(lambda: make_lf_train_step(pipe, frozen, mesh), lambda: create_lf_state(pipe),
+                lf_batch, True)
+    if lf_dp[2][0] != per_step:
+        fail(f"dp_train lf: launched {lf_dp[2][0]}, expected {per_step}")
+    total = {k: total[k] + lf_dp[2][0][k] for k in total}
+    lf_cmp = dp_compare(lf_dp[0], lf_ref[0], lf_dp[1], lf_ref[1], lf_dp[5], lf_ref[5],
+                        lf_dp[4].param_names)
+
+    wall_mesh, wall_plain = float(np.median(walls["mesh"])), float(np.median(walls["plain"]))
+    emit("dp_train", world_size=mesh.size, backend="nccl", preset="parity", batch=TRAIN_B,
+         size=SIZE, steps=DP_STEPS, launches_per_step=per_step, launches=total,
+         kernels_inside_step=sp_inside, kernels_inside_lf_step=lf_dp[3],
+         sp_vs_no_mesh=sp_cmp, at_vs_no_mesh=at_cmp, lf_vs_no_mesh=lf_cmp,
+         step_wall_ms={"mesh": walls["mesh"], "no_mesh": walls["plain"]},
+         step_wall_ms_median={"mesh": wall_mesh, "no_mesh": wall_plain},
+         dp_overhead_ms=wall_mesh - wall_plain, step_device_busy_ms=busy,
+         device_idle_share=1 - busy / wall_mesh,
+         nccl_device_ms_in_step=nccl_us / 1e3, nccl_kernels_in_step=nccl_n,
+         grad_allreduce_ms=allreduce_ms, grad_bytes_per_step=grad_bytes,
+         sp_losses=sp_run["losses"], at_loss=at_dp[1][0], lf_loss=lf_dp[1][0])
+    for name, c in (("sp", sp_cmp), ("at", at_cmp), ("lf", lf_cmp)):
+        if not c["ok"]:
+            fail(f"dp_train {name}: the mesh steps differ from the steps without a mesh: {c}")
+    return total, sp_run
+
+
+def gloo_serve(torch, cuda, mesh, shared):
+    """The serve phase's script (submit() with the detach/attach drain)
+    at world size ``mesh.size`` on three turbo servers: a
+    DistributedStreamServer of this rank's SERVE_STREAMS / size slots
+    (the attach and detach of its own slots only, so the ranks drain at
+    different ticks), a StreamServer(mesh=) of the whole pool (every call
+    on every rank), and a StreamServer without a mesh over this rank's
+    slots, the reference of both. Returns each one's gaze per frame and
+    launches."""
+    from gaze_tpu_torch.serve import DistributedStreamServer, StreamServer
+
+    cfg, dtype, qsp, weights = shared["cfg"], shared["dtype"], shared["qsp"], shared["weights"]
+    batches, n = shared["batches"], SERVE_TICKS
+    s_local = SERVE_STREAMS // mesh.size
+    lo = mesh.rank * s_local
+
+    def script(srv, local):
+        def own(slots):
+            return [s - lo for s in slots if lo <= s < lo + s_local] if local else list(slots)
+
+        rows = slice(lo, lo + s_local) if local else slice(None)
+        for i in own(range(S_ATTACHED)):
+            srv.attach(i)
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        gaze = []
+        for t in range(n):
+            if t == SERVE_SWAP_AT:
+                for i in own(SERVE_DETACH):
+                    srv.detach(i)
+                for i in own(SERVE_ATTACH):
+                    srv.attach(i)
+            r = srv.submit(batches[t][rows])
+            if t:
+                gaze.append(r["gaze"])
+        gaze.append(srv.flush()["gaze"])
+        torch.cuda.synchronize()
+        return {"gaze": np.stack(gaze), "launches": launch_counts(cuda)}
+
+    def server(streams, **kw):
+        return StreamServer(cfg, weights, streams, dtype=dtype, quant_sp=qsp, **kw)
+
+    return {"distributed": script(DistributedStreamServer(cfg, weights, s_local, mesh=mesh,
+                                                          dtype=dtype, quant_sp=qsp), True),
+            "meshed": script(server(SERVE_STREAMS, mesh=mesh), False),
+            "plain": script(server(s_local, device=mesh.device), True)}
+
+
+def dp_gloo_worker(rank: int, world: int, init: str, out: str, shared: str) -> None:
+    """One rank of dp_gloo2 (this script, started by dp_gloo2_phase): the
+    SP steps of dp_train over a gloo group of ``world`` ranks on cuda:0,
+    this rank feeding its rows of each global batch, then gloo_serve on
+    the serve phase's weights and frames (``shared``). Saves its state,
+    losses, applied gradients (rank 0), launches, step walls, the
+    gradient all-reduce's time and the servers' results."""
+    import torch
+    import torch.distributed as dist
+
+    from gaze_tpu_torch.core.distributed import all_reduce_flat_, global_mesh, initialize
+    from gaze_tpu_torch.models.pipeline import GazePipeline
+    from gaze_tpu_torch.ops import cuda
+    from gaze_tpu_torch.parallel.mesh import shard_batch
+    from gaze_tpu_torch.train.sp import create_sp_state, make_sp_train_step
+
+    initialize(init, world, rank, backend="gloo")
+    mesh = global_mesh(device="cuda:0")
+    cfg = dp_config()
+    pipe = GazePipeline(cfg, device=mesh.device, seed=0)
+    applied = []
+    state = capture_grads(create_sp_state(pipe), applied)
+    step = make_sp_train_step(pipe, mesh)
+    snaps, losses, walls, launches = [], [], [], []
+    for b in sp_batches(cfg, TRAIN_B, DP_STEPS):
+        local = shard_batch(mesh, b)
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, local)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launches.append(launch_counts(cuda))
+        losses.append(float(m["loss"]))
+        snaps.append(state_snapshot(state))
+    grads = [torch.zeros_like(p) for p in state.params] + [torch.zeros(1, device=mesh.device)]
+    torch.cuda.synchronize()
+    ar_host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        all_reduce_flat_(grads, mesh)
+        torch.cuda.synchronize()
+        ar_host.append((time.perf_counter() - t0) * 1e3)
+    ar_events = cuda_ms(torch, lambda: all_reduce_flat_(grads, mesh), 3, 1)
+    applied = [[g.cpu() for g in a] for a in applied] if rank == 0 else None
+    del grads, state, step, pipe
+    torch.cuda.empty_cache()
+    serve = gloo_serve(torch, cuda, mesh, torch.load(shared, weights_only=False))
+    torch.save({"snapshots": snaps, "losses": losses, "walls": walls, "grads": applied,
+                "launches": launches, "allreduce_host_ms": ar_host,
+                "allreduce_event_ms": ar_events, "local_batch": len(local["gaze"]),
+                "serve": serve}, out)
+    dist.destroy_process_group()
+
+
+def dp_gloo2_phase(torch, sp_run, turbo, serve, tmp: str):
+    """DP_GLOO_RANKS processes on the one card over gloo (NCCL refuses two
+    ranks on one device), each this script as dp_gloo_worker: the ranks'
+    states must be bit-equal, and within dp_train's bands of its world-1
+    steps at the same global batch. Then the servers of gloo_serve: on
+    each rank the DistributedStreamServer's gaze and the rank's rows of
+    the StreamServer(mesh=)'s gaze bit-equal to the StreamServer without
+    a mesh over the same slots, the meshed gaze equal on both ranks,
+    exact launches per tick. Returns the training launches of both
+    ranks and the servers' launches."""
+    torch.cuda.empty_cache()
+    init = f"file://{os.path.join(tmp, 'gloo_rendezvous')}"
+    outs = [os.path.join(tmp, f"gloo_rank{r}.pt") for r in range(DP_GLOO_RANKS)]
+    shared = os.path.join(tmp, "gloo_serve_inputs.pt")
+    torch.save({k: turbo[k] for k in ("cfg", "dtype", "qsp", "weights")}
+               | {"batches": serve["batches"]}, shared)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-gloo-worker",
+                               str(r), str(DP_GLOO_RANKS), init, outs[r], shared],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(DP_GLOO_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_GLOO_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        logs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        fail("dp_gloo2: a rank failed:\n" + "\n".join(log[-2000:] for log in logs))
+    ranks = [torch.load(o, weights_only=False) for o in outs]   # written by this script's ranks
+    bit_equal = ranks[0]["losses"] == ranks[1]["losses"]
+    for (sd0, mom0), (sd1, mom1) in zip(ranks[0]["snapshots"], ranks[1]["snapshots"]):
+        bit_equal &= (all(torch.equal(sd0[k], sd1[k]) for k in sd0)
+                      and all(torch.equal(a, b) for a, b in zip(mom0, mom1)))
+    vs_world1 = dp_compare(ranks[0]["snapshots"], sp_run["snapshots"], ranks[0]["losses"],
+                           sp_run["losses"], ranks[0]["grads"], sp_run["grads"], sp_run["names"])
+    per_step = flow_launches(dp_config(), 1)
+    srv = [r["serve"] for r in ranks]
+    s_local = SERVE_STREAMS // DP_GLOO_RANKS
+    meshed = srv[0]["meshed"]["gaze"]
+    serve_checks = {
+        "distributed_equal_to_plain": [np.array_equal(s["distributed"]["gaze"],
+                                                      s["plain"]["gaze"]) for s in srv],
+        "meshed_rows_equal_to_plain": [
+            np.array_equal(s["meshed"]["gaze"][:, r * s_local:(r + 1) * s_local],
+                           s["plain"]["gaze"]) for r, s in enumerate(srv)],
+        "meshed_equal_on_both_ranks": all(np.array_equal(s["meshed"]["gaze"], meshed)
+                                          for s in srv),
+        # not held: at world 1 the pool's 16 rows are one batch, here 8
+        "meshed_slot_frames_equal_to_world1": int(sum(
+            np.array_equal(meshed[f, i], serve["results"][f][i])
+            for f in range(SERVE_TICKS) for i in range(SERVE_STREAMS))),
+        "slot_frames": SERVE_TICKS * SERVE_STREAMS}
+    serve_want = {k: v * SERVE_TICKS for k, v in turbo["per_step"].items()}
+    emit("dp_gloo2", world_size=DP_GLOO_RANKS, backend="gloo", device="cuda:0 (shared)",
+         global_batch=TRAIN_B, local_batch=ranks[0]["local_batch"], steps=DP_STEPS,
+         ranks_bit_equal=bit_equal, vs_world1_nccl=vs_world1,
+         step_wall_ms=[r["walls"] for r in ranks],
+         grad_allreduce_ms_gloo_host_memory={"host_clock": [r["allreduce_host_ms"] for r in ranks],
+                                             "cuda_events": [r["allreduce_event_ms"]
+                                                             for r in ranks]},
+         launches=[r["launches"] for r in ranks], phase_wall_s=wall,
+         servers=serve_checks, servers_streams_per_rank=s_local,
+         servers_launches=[{k: v["launches"] for k, v in s.items()} for s in srv],
+         servers_launches_expected=serve_want)
+    for r in ranks:
+        for i, got in enumerate(r["launches"]):
+            if got != per_step:
+                fail(f"dp_gloo2: a rank's step {i} launched {got}, expected {per_step}")
+    if not bit_equal:
+        fail("dp_gloo2: the two ranks' states or losses differ")
+    if not vs_world1["ok"]:
+        fail(f"dp_gloo2: world 2 differs from world 1 beyond the bands: {vs_world1}")
+    for s in srv:
+        for name, run in s.items():
+            if run["launches"] != serve_want:
+                fail(f"dp_gloo2: the {name} server launched {run['launches']}, "
+                     f"expected {serve_want}")
+    if not (all(serve_checks["distributed_equal_to_plain"])
+            and all(serve_checks["meshed_rows_equal_to_plain"])
+            and serve_checks["meshed_equal_on_both_ranks"]):
+        fail(f"dp_gloo2: the world-2 servers differ from the servers without a mesh: "
+             f"{serve_checks}")
+    train = {k: sum(sum(c[k] for c in r["launches"]) for r in ranks) for k in per_step}
+    servers = {k: sum(s[name]["launches"][k] for s in srv for name in ("distributed", "meshed"))
+               for k in serve_want}
+    return train, servers
+
+
+def dist_serve_phase(torch, cuda, turbo, serve, mesh):
+    """The serve phase's script (submit() with the detach/attach drain,
+    then direct ticks) on a turbo DistributedStreamServer of 16 slots at
+    world size 1 and on a StreamServer(mesh=global mesh): gaze bit-equal
+    to serve's StreamServer, exact launches per tick. Returns the
+    distributed server's launches."""
+    from gaze_tpu_torch.serve import DistributedStreamServer, StreamServer
+
+    cfg, dtype, qsp, weights = turbo["cfg"], turbo["dtype"], turbo["qsp"], turbo["weights"]
+    per_tick = turbo["per_step"]
+    batches, n = serve["batches"], SERVE_TICKS
+
+    def script(srv, name):
+        for i in range(S_ATTACHED):
+            srv.attach(i)
+        results = {}
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        for t in range(n):
+            if t == SERVE_SWAP_AT:
+                for i in SERVE_DETACH:
+                    srv.detach(i)
+                for i in SERVE_ATTACH:
+                    srv.attach(i)
+            r = srv.submit(batches[t])
+            want = {k: v * t for k, v in per_tick.items()}
+            if launch_counts(cuda) != want:
+                fail(f"dist_serve {name}: submit {t} launched {launch_counts(cuda)}, "
+                     f"expected {want}")
+            if t:
+                results[t - 1] = r["gaze"]
+        results[n - 1] = srv.flush()["gaze"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(cuda)
+        ticks = [srv.tick(batches[t])["gaze"] for t in range(SERVE_DIRECT_TICKS)]
+        equal = (all(np.array_equal(results[f], serve["results"][f]) for f in range(n))
+                 and all(np.array_equal(a, b) for a, b in zip(ticks, serve["tick_gaze"])))
+        return {"equal": equal, "launches": launches, "wall_s": wall}
+
+    dist = script(DistributedStreamServer(cfg, weights, SERVE_STREAMS, mesh=mesh, dtype=dtype,
+                                          quant_sp=qsp), "DistributedStreamServer")
+    meshed = script(StreamServer(cfg, weights, SERVE_STREAMS, dtype=dtype, quant_sp=qsp,
+                                 mesh=mesh), "StreamServer(mesh=)")
+    emit("dist_serve", world_size=mesh.size, streams=SERVE_STREAMS, attached_at_start=S_ATTACHED,
+         ticks=n, direct_ticks=SERVE_DIRECT_TICKS, launches_per_tick=per_tick,
+         distributed={"gaze_bit_equal_to_serve": dist["equal"], "launches": dist["launches"],
+                      "submit_run_wall_s": dist["wall_s"]},
+         meshed={"gaze_bit_equal_to_serve": meshed["equal"], "launches": meshed["launches"],
+                 "submit_run_wall_s": meshed["wall_s"]})
+    if not dist["equal"] or not meshed["equal"]:
+        fail(f"dist_serve: gaze differs from serve's StreamServer (distributed "
+             f"{dist['equal']}, meshed {meshed['equal']})")
+    want = {k: v * n for k, v in per_tick.items()}
+    if dist["launches"] != want or meshed["launches"] != want:
+        fail(f"dist_serve: launches {dist['launches']}, {meshed['launches']}, expected {want}")
+    return dist["launches"]
+
+
+def dist_rollout_phase(torch, cuda, turbo, rollout, mesh):
+    """``rollout_eval_arrays(mesh=global mesh)`` at world size 1 over the
+    rollout phase's videos at chunks of 8: sums equal to that phase's,
+    exact launches. Returns the launches."""
+    from gaze_tpu_torch.evaluation.rollout import rollout_eval_arrays
+
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    sums = rollout_eval_arrays(turbo["pipe"], *rollout["inputs"], chunk_len=ROLL_CHUNKS[0],
+                               mesh=mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts(cuda)
+    expect = {k: c * (ROLL_T - 1) for k, c in turbo["per_step"].items()}
+    equal = all(np.array_equal(a, b) for a, b in zip(sums, rollout["sums"]))
+    emit("dist_rollout", world_size=mesh.size, videos=ROLL_V, frames=ROLL_T,
+         chunk_len=ROLL_CHUNKS[0], seconds=secs, sums_equal_to_rollout=equal,
+         counts=sums[2].tolist(), launches=launches)
+    if launches != expect:
+        fail(f"dist_rollout: launches {launches}, expected {expect}")
+    if not equal:
+        fail("dist_rollout: the sums differ from the rollout phase's")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2670,10 +3208,12 @@ def main() -> None:
     turbo_launches = turbo["launches"]
 
     # ---------------------------------------------------------- serve
-    serve_launches = serve_phase(torch, cuda, turbo, frames, fixsac, rng)
+    serve = serve_phase(torch, cuda, turbo, frames, fixsac, rng)
+    serve_launches = serve["launches"]
 
     # -------------------------------------------------------- rollout
-    rollout_launches = rollout_phase(torch, cuda, turbo)
+    rollout = rollout_phase(torch, cuda, turbo)
+    rollout_launches = rollout["launches"]
 
     # ----------------------------------------------------------- tail
     tail_launches = tail_phase(torch, dev, cuda, turbo, frames, fixsac)
@@ -2687,7 +3227,24 @@ def main() -> None:
     training = {"train_sp": train_launches, "qat": qat_launches, "train_at": at_launches,
                 "train_lf": train_lf_phase(torch, cuda, sp_state, at_state),
                 "stages": stages_phase(torch, cuda)}
-    del sp_state, at_state
+
+    # --------------------------------------------------- distributed
+    dist_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        mesh = dist_init_phase(torch, os.path.join(dist_dir, "nccl_rendezvous"))
+        training["dp_train"], sp_run = dp_train_phase(torch, cuda, mesh, sp_state, at_state)
+        training["dp_gloo2"], gloo2_servers = dp_gloo2_phase(torch, sp_run, turbo, serve,
+                                                             dist_dir)
+        dist_launches = {"dist_serve": dist_serve_phase(torch, cuda, turbo, serve, mesh),
+                         "dist_serve_gloo2": gloo2_servers,
+                         "dist_rollout": dist_rollout_phase(torch, cuda, turbo, rollout, mesh)}
+    finally:
+        # also on a failed check: a live NCCL group holds the exit for
+        # its watchdog's timeout
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        shutil.rmtree(dist_dir, ignore_errors=True)
+    del sp_state, at_state, sp_run
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------- data layer
@@ -2724,6 +3281,7 @@ def main() -> None:
                                           "serve": serve_launches[name],
                                           "rollout": rollout_launches[name],
                                           "tail": tail_launches[name],
+                                          **{k: c[name] for k, c in dist_launches.items()},
                                           **{k: c[name] for k, c in data_launches.items()}},
                      "training_launches": {path: c[name] for path, c in training.items()},
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
@@ -2746,4 +3304,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-gloo-worker"]:
+        dp_gloo_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
+                       sys.argv[6])
+    else:
+        main()

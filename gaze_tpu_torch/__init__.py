@@ -4,10 +4,11 @@ The per-frame path of ``gaze_tpu`` (TV-L1 flow -> two-stream SP ->
 onset-gated AT LSTM -> LF head -> argmax gaze) on an NVIDIA H100, with
 its int8 serving path (the VGG streams and the fuse/decoder tail), its
 serving and evaluation surface and its training stages (SP, QAT, AT,
-LF):
+LF), on one card or data-parallel over several:
 
 - ``core``       — configuration dataclasses, device resolution,
-                   checkpoints;
+                   checkpoints, process-group start-up and the
+                   collectives (``core.distributed``);
 - ``ops``        — preprocessing, image primitives, warp, TV-L1, the
                    int8 GEMM convs of the quantized tail;
 - ``ops.cuda``   — the hand-written Hopper kernels (built from ``csrc/``
@@ -20,9 +21,12 @@ LF):
                    host IO, flow-image extraction on the card, the
                    synthetic corpus, I-DT fixation labels, the flip
                    augmentation, the device prefetcher;
-- ``serve``      — ``StreamServer``, the multi-stream server;
+- ``serve``      — ``StreamServer``, the multi-stream server (sharded
+                   over a mesh too), and ``DistributedStreamServer``;
 - ``train``      — the SP, QAT, AT and LF training steps, AdamW, and
-                   the trainer (``train.stages``);
+                   the trainer (``train.stages``), data-parallel over a
+                   mesh;
+- ``parallel``   — the data mesh: one process per card;
 - ``utils``      — the step logger.
 
 Importing the package builds nothing and touches no device; entry points
@@ -58,10 +62,18 @@ def __getattr__(name):
         from gaze_tpu_torch.ops.tvl1 import tvl1_flow
 
         return tvl1_flow
-    if name == "StreamServer":
-        from gaze_tpu_torch.serve import StreamServer
+    if name in ("StreamServer", "DistributedStreamServer"):
+        from gaze_tpu_torch import serve
 
-        return StreamServer
+        return getattr(serve, name)
+    if name in ("initialize", "global_mesh"):
+        from gaze_tpu_torch.core import distributed
+
+        return getattr(distributed, name)
+    if name in ("make_mesh", "shard_batch"):
+        from gaze_tpu_torch.parallel import mesh
+
+        return getattr(mesh, name)
     if name in ("rollout_eval_arrays", "rollout_eval_videos"):
         from gaze_tpu_torch.evaluation import rollout
 

@@ -9,6 +9,10 @@ a reader sees a whole checkpoint or none. The three newest steps are
 kept. Best tracking keeps the JAX layout: the sibling ``<dir>_best``
 holds the best-metric state and ``<dir>_best.metric.json`` its metric
 (lower is better).
+
+Under a data ``mesh`` (every rank holding the same state) rank 0 writes
+and the others wait at a barrier until the files are whole; every rank
+reads.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from gaze_tpu_torch.core.distributed import barrier
+from gaze_tpu_torch.parallel.mesh import Mesh, checked
 from gaze_tpu_torch.train.common import TrainState
 
 MAX_TO_KEEP = 3
@@ -46,9 +52,23 @@ def _cpu(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
-def save_checkpoint(directory: str, step: int, state: TrainState) -> None:
+def writes(mesh: Optional[Mesh]) -> bool:
+    """Whether this process writes the shared files: rank 0 of the mesh,
+    or the only process."""
+    return mesh is None or checked(mesh).rank == 0
+
+
+def save_checkpoint(directory: str, step: int, state: TrainState,
+                    mesh: Optional[Mesh] = None) -> None:
     """Save ``state`` as ``<directory>/<step>.pt``; older steps beyond the
-    newest three are removed."""
+    newest three are removed. Under a ``mesh``, rank 0 writes and every
+    rank returns once the file is whole."""
+    if writes(mesh):
+        _write_checkpoint(directory, step, state)
+    barrier(mesh)
+
+
+def _write_checkpoint(directory: str, step: int, state: TrainState) -> None:
     os.makedirs(directory, exist_ok=True)
     payload = {
         "step": int(state.step),
@@ -106,21 +126,26 @@ def best_metric(directory: str) -> Optional[float]:
         return None
 
 
-def save_best_checkpoint(directory: str, step: int, state: TrainState, metric: float) -> bool:
+def save_best_checkpoint(directory: str, step: int, state: TrainState, metric: float,
+                         mesh: Optional[Mesh] = None) -> bool:
     """Save ``state`` under ``<directory>_best`` when ``metric`` is lower
-    than the tracked best (or none is tracked); True iff it was saved."""
+    than the tracked best (or none is tracked); True iff it was saved.
+    Under a ``mesh`` every rank reads the tracked best before rank 0
+    writes, and returns once the files are whole."""
     prev = best_metric(directory)
-    if prev is not None and not metric < prev:
-        return False
-    save_checkpoint(_best_dir(directory), step, state)
-    payload = json.dumps({"metric": float(metric), "step": int(step)})
+    barrier(mesh)
+    better = prev is None or metric < prev
+    if better and writes(mesh):
+        _write_checkpoint(_best_dir(directory), step, state)
+        payload = json.dumps({"metric": float(metric), "step": int(step)})
 
-    def write(p):
-        with open(p, "w") as f:
-            f.write(payload)
+        def write(p):
+            with open(p, "w") as f:
+                f.write(payload)
 
-    _atomic_write(_best_metric_path(directory), write)
-    return True
+        _atomic_write(_best_metric_path(directory), write)
+    barrier(mesh)
+    return better
 
 
 def restore_best_or_latest(directory: str, state: TrainState, *,

@@ -11,15 +11,20 @@ motion code 0.5 is the symmetry centre).
 The mask is drawn once per step, before the microbatch split, from a
 ``torch.Generator`` seeded from (seed, step): deterministic in both and
 different across steps. It cannot reproduce JAX's threefry bits; the
-parity tests pass the mask under ``"_flip"`` themselves.
+parity tests pass the mask under ``"_flip"`` themselves. Under a data
+mesh the coin is drawn for every row of the global batch and each rank
+keeps its rows' coins, so the flips do not depend on the mesh size.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from gaze_tpu_torch.core.distributed import local_batch_rows
+from gaze_tpu_torch.parallel.mesh import Mesh
 
 
 def flip_mask(seed: int, step: int, batch: int) -> torch.Tensor:
@@ -29,12 +34,20 @@ def flip_mask(seed: int, step: int, batch: int) -> torch.Tensor:
     return (torch.rand(batch, generator=gen) < 0.5).to(torch.float32)
 
 
-def with_flip_mask(batch: Dict[str, torch.Tensor], seed: int, step: int) -> Dict:
+def with_flip_mask(batch: Dict[str, torch.Tensor], seed: int, step: int,
+                   mesh: Optional[Mesh] = None, num_microbatches: int = 1) -> Dict:
     """A copy of ``batch`` with its per-sample flip mask under ``"_flip"``
     (float 0/1, on the gaze's device, so it splits into microbatches
-    like every other entry)."""
+    like every other entry). With a ``mesh``, ``batch`` is the rank's
+    rows of the global batch in the layout of ``num_microbatches``
+    (``local_batch_rows``), and gets those rows' coins of the global
+    draw."""
     g = batch["gaze"]
-    return dict(batch, _flip=flip_mask(seed, step, g.shape[0]).to(g.device))
+    if mesh is None:
+        return dict(batch, _flip=flip_mask(seed, step, g.shape[0]).to(g.device))
+    total = g.shape[0] * mesh.size
+    rows = torch.from_numpy(local_batch_rows(total, num_microbatches, mesh))
+    return dict(batch, _flip=flip_mask(seed, step, total)[rows].to(g.device))
 
 
 def apply_hflip(batch: Dict[str, torch.Tensor], model_width: int) -> Dict:

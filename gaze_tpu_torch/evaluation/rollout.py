@@ -20,8 +20,13 @@ in frame order, so they do not depend on ``chunk_len``.
 
 ``rollout_eval_arrays`` takes videos as arrays; ``rollout_eval_videos``
 decodes GTEA videos (``data/gtea.py`` records) chunk by chunk on a
-worker thread while the card runs the previous chunk. Not ported: the
-``mesh=`` option.
+worker thread while the card runs the previous chunk.
+
+With a data ``mesh`` (one process per card) the video slots split into
+contiguous blocks, one per rank: each rank copies in, or decodes, only
+its own videos and rolls them out on its card, and the per-video sums
+are all-gathered, so every rank returns the unsharded call's results.
+The calls are collective: every rank makes the same ones.
 """
 
 from __future__ import annotations
@@ -33,9 +38,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gaze_tpu_torch.core.distributed import all_gather_rows, local_batch_slice
 from gaze_tpu_torch.data.gtea import FrameRecord, _decode_flow_images, _decode_images
 from gaze_tpu_torch.evaluation.metrics import aae, auc_judd
 from gaze_tpu_torch.models.pipeline import GazePipeline, StreamState
+from gaze_tpu_torch.parallel.mesh import Mesh, checked
 
 SCORE_KEYS = ("heatmap", "saliency", "attention")
 # The padding of a chunk's tail: frames and labels 0, flow images 128
@@ -46,7 +53,7 @@ FLOW_PAD = 128
 def make_rollout_chunk_fn(
     pipeline: GazePipeline,
     with_flow: bool = False,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     score_key: str = "heatmap",
 ) -> Callable:
     """The chunk evaluator ``(state, prev, frames, fixsac, gaze, valid
@@ -68,11 +75,15 @@ def make_rollout_chunk_fn(
     ``score_key`` picks the scored map: "heatmap" (the LF fusion, the
     reported metric), "saliency" (SP only) or "attention" (AT only). The
     rollout itself is the same in all three.
+
+    With a ``mesh`` every per-video argument is this rank's block of
+    the video slots (on ``mesh.device``, where the pipeline must run),
+    and ``sums`` is every rank's, all-gathered: (3, V x size) in rank
+    order.
     """
     if score_key not in SCORE_KEYS:
         raise ValueError(f"unknown score_key {score_key!r}")
-    if mesh is not None:
-        raise NotImplementedError("mesh: the sharded rollout is not ported")
+    checked(mesh)
     cam = pipeline.config.camera
 
     @torch.inference_mode()
@@ -94,7 +105,7 @@ def make_rollout_chunk_fn(
         sums = torch.zeros_like(per_frame[0], dtype=torch.float64)
         for v in per_frame:   # in frame order: chunk_len does not change the sums
             sums += v
-        return state, prev, sums
+        return state, prev, all_gather_rows(sums.T, mesh).T
 
     return chunk_fn
 
@@ -106,7 +117,7 @@ def rollout_eval_arrays(
     fixsac: np.ndarray,
     valid: Optional[np.ndarray] = None,
     chunk_len: int = 32,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     score_key: str = "heatmap",
     flow_img: Optional[np.ndarray] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -121,6 +132,9 @@ def rollout_eval_arrays(
       valid:  optional (V, T) gaze-validity mask (default all valid).
       flow_img: optional (V, T, h, w, 2) uint8 precomputed flow images:
         the TV-L1 solve is skipped and frame t consumes flow_img[:, t].
+      mesh: optional data mesh: V is padded up to a multiple of its
+        size with inactive slots, and each rank rolls out its block of
+        the videos; every rank returns every video's sums.
 
     Returns:
       (aae_sum, auc_sum, count) float64 arrays of shape (V,); divide for
@@ -129,37 +143,49 @@ def rollout_eval_arrays(
     """
     chunk_fn = make_rollout_chunk_fn(pipeline, with_flow=flow_img is not None, mesh=mesh,
                                      score_key=score_key)
-    V, T = frames.shape[:2]
-    totals = np.zeros((3, V), np.float64)
+    V_real, T = frames.shape[:2]
+    totals = np.zeros((3, V_real), np.float64)
     if T < 2:
         return totals[0], totals[1], totals[2]
     if valid is None:
-        valid = np.ones((V, T), np.float32)
+        valid = np.ones((V_real, T), np.float32)
+    rows = slice(0, V_real)
+    if mesh is not None:
+        pad_v = -V_real % mesh.size
+        if pad_v:   # inactive slots: no frames, labels 0, zero-motion flow
+            frames, gaze, fixsac, valid = (
+                np.concatenate([x, np.zeros((pad_v,) + x.shape[1:], x.dtype)])
+                for x in (frames, gaze, fixsac, valid))
+            if flow_img is not None:
+                flow_img = np.concatenate([flow_img, np.full(
+                    (pad_v,) + flow_img.shape[1:], FLOW_PAD, flow_img.dtype)])
+        rows = local_batch_slice(V_real + pad_v, mesh)
+    V = rows.stop - rows.start
     dev = pipeline.device
 
     def chunk(x, s, e, fill=0, dtype=None):
-        x = x[:, s:e] if dtype is None else x[:, s:e].astype(dtype)
+        x = x[rows, s:e] if dtype is None else x[rows, s:e].astype(dtype)
         pad = chunk_len - (e - s)
         if pad:
             x = np.concatenate([x, np.full((V, pad) + x.shape[2:], fill, x.dtype)], axis=1)
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
     state = pipeline.init_state(V)
-    prev = torch.from_numpy(np.ascontiguousarray(frames[:, 0])).to(dev)
+    prev = torch.from_numpy(np.ascontiguousarray(frames[rows, 0])).to(dev)
     for s in range(1, T, chunk_len):
         e = min(s + chunk_len, T)
         extra = () if flow_img is None else (chunk(flow_img, s, e, fill=FLOW_PAD),)
         state, prev, sums = chunk_fn(
             state, prev, chunk(frames, s, e), chunk(fixsac, s, e, dtype=np.float32),
             chunk(gaze, s, e, dtype=np.float32), chunk(valid, s, e, dtype=np.float32), *extra)
-        totals += sums.cpu().numpy()   # the chunk's one device-to-host copy
+        totals += sums.cpu().numpy()[:, :V_real]   # the chunk's one device-to-host copy
     return totals[0], totals[1], totals[2]
-
 
 
 def _decode_group_chunk(
     group: Sequence[str], recs: Dict[str, List[FrameRecord]], s: int, chunk_len: int, V: int,
     nh: int, nw: int, th: int, tw: int, use_precomputed_flow: bool, pin: bool = False,
+    allow_empty: bool = False, flow_shape: Optional[Tuple[int, ...]] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Decode one lockstep chunk, frames ``[s, s + chunk_len)``, for a
     whole group of videos.
@@ -170,7 +196,10 @@ def _decode_group_chunk(
     frames (V, chunk_len, nh, nw, 3) uint8, fixsac, gaze (model-grid
     pixels: native gaze times ``tw / nw``, ``th / nh``), valid, and the
     flow images (V, chunk_len, h, w, 2) uint8 or None. Slots past a
-    video's end hold zeros (flow images 128) and valid 0.
+    video's end hold zeros (flow images 128) and valid 0. A chunk past
+    every video's end is an error, unless ``allow_empty``: then it is all
+    padding, its flow images of ``flow_shape`` (a rank of a mesh whose
+    videos ended while another's run on).
     """
     frames_c = torch.zeros((V, chunk_len, nh, nw, 3), dtype=torch.uint8, pin_memory=pin)
     fix_c, valid_c = (torch.zeros((V, chunk_len), pin_memory=pin) for _ in range(2))
@@ -188,12 +217,14 @@ def _decode_group_chunk(
         slots.extend((vi, t) for t in range(len(rs)))
         flat_recs.extend(rs)
     if not flat_recs:
-        raise ValueError(f"empty chunk at frame {s}: past every video's end")
-    for (vi, t), img in zip(slots, _decode_images([r.image_path for r in flat_recs])):
-        frames_np[vi, t] = img
+        if not allow_empty:
+            raise ValueError(f"empty chunk at frame {s}: past every video's end")
+    else:
+        for (vi, t), img in zip(slots, _decode_images([r.image_path for r in flat_recs])):
+            frames_np[vi, t] = img
     flow_c = None
     if use_precomputed_flow:
-        fl = _decode_flow_images(flat_recs)
+        fl = _decode_flow_images(flat_recs) if flat_recs else np.zeros((0,) + flow_shape)
         flow_c = torch.full((V, chunk_len) + fl.shape[1:], FLOW_PAD, dtype=torch.uint8,
                             pin_memory=pin)
         flow_np = flow_c.numpy()
@@ -208,7 +239,7 @@ def rollout_eval_videos(
     chunk_len: int = 32,
     group_size: int = 8,
     use_precomputed_flow: Optional[bool] = None,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     score_key: str = "heatmap",
     decode_waits: Optional[List[float]] = None,
 ) -> Dict[str, Tuple[float, float, int]]:
@@ -231,12 +262,18 @@ def rollout_eval_videos(
     ``decode_waits``: a list that receives, per chunk, the seconds this
     thread waited for the chunk's decode and copy to be issued.
 
+    With a ``mesh``, ``group_size`` is rounded up to a multiple of its
+    size, each rank decodes and rolls out only its block of each group's
+    slots (every rank runs the group's chunks, its videos ended or not),
+    and every rank returns every video's result.
+
     Returns {video: (mean AAE in degrees, mean AUC, frames scored)}. A
     video of one frame scores nothing: (nan, nan, 0). Raises ValueError
     on an empty record list.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh: the sharded rollout is not ported")
+    if checked(mesh) is not None and group_size % mesh.size:
+        group_size += mesh.size - group_size % mesh.size
+    rows = slice(0, group_size) if mesh is None else local_batch_slice(group_size, mesh)
     cfg = pipeline.config
     th, tw = cfg.image.height, cfg.image.width
     names = sorted(videos.keys())
@@ -253,16 +290,18 @@ def rollout_eval_videos(
     if use_precomputed_flow is None:
         use_precomputed_flow = bool(names) and all(
             rec_has_flow(r) for v in names for r in recs[v])
-    chunk_fn = make_rollout_chunk_fn(pipeline, with_flow=use_precomputed_flow,
+    chunk_fn = make_rollout_chunk_fn(pipeline, with_flow=use_precomputed_flow, mesh=mesh,
                                      score_key=score_key)
     dev = pipeline.device
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     results: Dict[str, Tuple[float, float, int]] = {}
 
-    def stage(group, s, V, nh, nw):
+    def stage(group, s, V, nh, nw, flow_shape):
         """Decode a chunk; on the card, start its copy on the side stream."""
         host = [x for x in _decode_group_chunk(group, recs, s, chunk_len, V, nh, nw, th, tw,
-                                               use_precomputed_flow, pin=side is not None)
+                                               use_precomputed_flow, pin=side is not None,
+                                               allow_empty=mesh is not None,
+                                               flow_shape=flow_shape)
                 if x is not None]
         if side is None:
             return host, None
@@ -287,26 +326,32 @@ def rollout_eval_videos(
     with ThreadPoolExecutor(max_workers=1) as pool:
         for g in range(0, len(names), group_size):
             group = names[g:g + group_size]
-            V = group_size
-            T_max = max(len(recs[v]) for v in group)
+            T_max = max(len(recs[v]) for v in group)   # the whole group's, on every rank
             if T_max < 2:
                 # no frame pair: nothing to score, as rollout_eval_arrays
                 results.update((v, (float("nan"), float("nan"), 0)) for v in group)
                 continue
+            mine = group[rows]   # this rank's videos (all of them without a mesh)
+            V = rows.stop - rows.start
             state = pipeline.init_state(V)
-            # seed prev with each video's frame 0 (scoring starts at 1)
-            decoded0 = _decode_images([recs[v][0].image_path for v in group])
+            # seed prev with each video's frame 0 (scoring starts at 1); a
+            # rank of a mesh without videos here decodes one for the size
+            decoded0 = _decode_images([recs[v][0].image_path for v in mine or group[:1]])
             nh, nw = decoded0.shape[1:3]
             prev_np = np.zeros((V, nh, nw, 3), np.uint8)
-            prev_np[:len(group)] = decoded0
+            prev_np[:len(mine)] = decoded0[:len(mine)]
             prev = torch.from_numpy(prev_np).to(dev)
-            totals = np.zeros((3, V), np.float64)
+            flow_shape = None
+            if mesh is not None and use_precomputed_flow:   # for an all-padding chunk
+                flow_shape = _decode_flow_images([next(
+                    r for v in group for r in recs[v] if rec_has_flow(r))]).shape[1:]
+            totals = np.zeros((3, group_size), np.float64)
             starts = list(range(1, T_max, chunk_len))
-            fut = pool.submit(stage, group, starts[0], V, nh, nw)
+            fut = pool.submit(stage, mine, starts[0], V, nh, nw, flow_shape)
             chunk = consume(fut)
             for si in range(len(starts)):
                 if si + 1 < len(starts):   # decode the next chunk while this one runs
-                    fut = pool.submit(stage, group, starts[si + 1], V, nh, nw)
+                    fut = pool.submit(stage, mine, starts[si + 1], V, nh, nw, flow_shape)
                 state, prev, sums = chunk_fn(state, prev, *chunk)
                 if si + 1 < len(starts):
                     chunk = consume(fut)

@@ -238,15 +238,16 @@ class GazePipeline:
         return sal, feat
 
     def sp_forward_train(
-        self, rgb_in: torch.Tensor, flow_in: torch.Tensor
+        self, rgb_in: torch.Tensor, flow_in: torch.Tensor, mesh=None
     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         """The training forward of the float SP with the deconv decoder:
-        train-mode BatchNorm, ``config.sp.remat`` applied. Returns
-        (saliency, spatial conv5, new BatchNorm running statistics); the
-        module's statistics are not updated (``SPNet.forward_train``)."""
+        train-mode BatchNorm (over the global batch under a data
+        ``mesh``), ``config.sp.remat`` applied. Returns (saliency, spatial
+        conv5, new BatchNorm running statistics); the module's statistics
+        are not updated (``SPNet.forward_train``)."""
         if self.quant_sp is not None or self.decoder_impl != "deconv":
             raise ValueError("training runs the float SP with the deconv decoder")
-        return self.sp.forward_train(rgb_in, flow_in)
+        return self.sp.forward_train(rgb_in, flow_in, mesh)
 
     # ---------------------------------------------------------- step ----
     def attend(

@@ -16,7 +16,13 @@ updated running statistics without storing them, as flax's
   the biased ``E[x^2] - E[x]^2`` clipped at 0, eps 1e-5;
 - running = 0.99 * running + 0.01 * batch (flax momentum 0.99, which is
   torch's momentum 0.01; torch's own update takes the unbiased
-  variance, flax's the biased one).
+  variance, flax's the biased one);
+- under a data ``mesh`` (each rank holding its rows of the global
+  batch) the statistics are the global batch's, as XLA computes them
+  for a sharded batch: the per-rank sums that make ``mean`` and
+  ``mean2`` are all-reduced by a collective that autograd
+  differentiates (its backward all-reduces the gradient), so each
+  rank's gradient through the statistics is the global one.
 
 ``cfg.remat`` recomputes activations in the backward pass instead of
 storing them (``torch.utils.checkpoint``): "encoders" for both VGG
@@ -38,6 +44,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from gaze_tpu_torch.core.config import SPConfig
+from gaze_tpu_torch.core.distributed import all_reduce_sum_grad
 from gaze_tpu_torch.models.vgg import VGG16Features, conv
 
 BN_MOMENTUM = 0.99   # flax's: running = m * running + (1 - m) * batch
@@ -70,13 +77,15 @@ class Decoder(nn.Module):
         """NCHW features -> (B, 1, H, W) logits."""
         return self._run(x, None)
 
-    def forward_train(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Train-mode BatchNorm: (logits, new running statistics keyed by
-        state-dict name), the statistics detached."""
+    def forward_train(self, x: torch.Tensor, mesh=None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Train-mode BatchNorm (global statistics under a ``mesh``):
+        (logits, new running statistics keyed by state-dict name), the
+        statistics detached."""
         stats: Dict[str, torch.Tensor] = {}
-        return self._run(x, stats), stats
+        return self._run(x, stats, mesh), stats
 
-    def _run(self, x: torch.Tensor, stats) -> torch.Tensor:
+    def _run(self, x: torch.Tensor, stats, mesh=None) -> torch.Tensor:
         dt = self.dtype
         x = x.to(dt)
         for i in range(len(self.cfg.decoder_channels)):
@@ -88,18 +97,26 @@ class Decoder(nn.Module):
                     x = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
                                      bn.bias, False, 0.0, bn.eps).to(dt)
                 else:
-                    x = _batch_norm_train(x, bn, f"bn{i + 1}", stats).to(dt)
+                    x = _batch_norm_train(x, bn, f"bn{i + 1}", stats, mesh).to(dt)
             x = F.relu(x)
         return conv(self.out_conv, x)
 
 
-def _batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, name: str, stats) -> torch.Tensor:
+def _batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, name: str, stats,
+                      mesh=None) -> torch.Tensor:
     """flax ``BatchNorm(use_running_average=False)`` on NCHW ``x``: float32
-    batch statistics over (B, H, W), the fast biased variance clipped at
-    0; the new running statistics go into ``stats``."""
+    batch statistics over (B, H, W) (the global batch's under a
+    ``mesh``), the fast biased variance clipped at 0; the new running
+    statistics go into ``stats``."""
     xf = x.float()
-    mean = xf.mean(dim=(0, 2, 3))
-    mean2 = (xf * xf).mean(dim=(0, 2, 3))
+    if mesh is None:
+        mean = xf.mean(dim=(0, 2, 3))
+        mean2 = (xf * xf).mean(dim=(0, 2, 3))
+    else:
+        sums = all_reduce_sum_grad(
+            torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]), mesh)
+        n = xf.numel() // xf.shape[1] * mesh.size
+        mean, mean2 = (sums / n).chunk(2)
     # torch.maximum splits the gradient at a tie, as jnp.maximum does
     var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
     with torch.no_grad():
@@ -149,22 +166,23 @@ class SPNet(nn.Module):
         return F.relu(conv(self.fuse_conv, fused.to(self.dtype).contiguous()))
 
     def forward_train(
-        self, rgb: torch.Tensor, flow: torch.Tensor
+        self, rgb: torch.Tensor, flow: torch.Tensor, mesh=None
     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         """The training forward: (saliency, spatial conv5, the decoder's
         new BatchNorm running statistics keyed by state-dict name). The
         module's own statistics are left as they are; ``cfg.remat``
-        applies."""
+        applies; BatchNorm takes the global batch's statistics under a
+        data ``mesh``."""
         if self.cfg.remat == "none":
             f_spatial, f_temporal = self.encode(rgb, flow)
         else:
             f_spatial = checkpoint(self.spatial, rgb, use_reentrant=False)
             f_temporal = checkpoint(self.temporal, flow, use_reentrant=False)
-        sal, stats = self.fuse_decode_train(f_spatial, f_temporal)
+        sal, stats = self.fuse_decode_train(f_spatial, f_temporal, mesh)
         return sal, f_spatial.float(), stats
 
     def fuse_decode_train(
-        self, f_spatial: torch.Tensor, f_temporal: torch.Tensor
+        self, f_spatial: torch.Tensor, f_temporal: torch.Tensor, mesh=None
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """:meth:`fuse_decode` with train-mode BatchNorm: (saliency, the
         decoder's new running statistics keyed by state-dict name), the
@@ -172,8 +190,9 @@ class SPNet(nn.Module):
         runs under ``checkpoint``."""
         fused = self._fuse(f_spatial, f_temporal)
         if self.cfg.remat == "full":
-            logits, stats = checkpoint(self.decoder.forward_train, fused, use_reentrant=False)
+            logits, stats = checkpoint(self.decoder.forward_train, fused, mesh,
+                                       use_reentrant=False)
         else:
-            logits, stats = self.decoder.forward_train(fused)
+            logits, stats = self.decoder.forward_train(fused, mesh)
         stats = {f"decoder.{k}": v for k, v in stats.items()}
         return torch.sigmoid(logits.float())[:, 0], stats

@@ -12,9 +12,19 @@ behind the current tick: on the card the copy runs from pinned host
 memory on a side CUDA stream, and the compute stream waits on its event
 before the tick that consumes it.
 
-Not ported: ``DistributedStreamServer`` and the ``mesh=`` option (one
-process per card over ``torch.distributed`` comes later), and the JAX
-server's ahead-of-time layout path, which has no counterpart here.
+Across cards, one process per card (``core.distributed``):
+
+- ``StreamServer(mesh=)``: every rank is handed the whole pool's frames,
+  as the JAX server's single program sees the whole array, computes its
+  contiguous ``max_streams / size`` slots, and the per-slot results are
+  all-gathered, so every rank returns the whole pool's;
+- ``DistributedStreamServer``: each rank owns ``streams_per_host``
+  slots, is handed only their frames and returns only their results.
+  Its tick holds no collective (the streams are independent), so a rank
+  may attach, detach or drain a pending submit without the others.
+
+Not ported: the JAX server's ahead-of-time layout path, which has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -26,9 +36,11 @@ import numpy as np
 import torch
 
 from gaze_tpu_torch.core.config import PipelineConfig
+from gaze_tpu_torch.core.distributed import all_gather_rows, global_mesh, local_batch_slice
 from gaze_tpu_torch.models.pipeline import GazePipeline, StreamState
 from gaze_tpu_torch.models.quant import QuantSP
 from gaze_tpu_torch.models.weights import StateDict
+from gaze_tpu_torch.parallel.mesh import Mesh, checked
 
 
 def _map_state(fn, a: StreamState, b: StreamState) -> StreamState:
@@ -61,9 +73,15 @@ class StreamServer:
           advances once per stream and its attention stays frozen
           ("always" is a deprecated alias that warns).
       quant_sp, at_pool, decoder_impl, quant_conv: as ``GazePipeline``.
-      mesh: not ported; raises ``NotImplementedError``.
+      mesh: a data mesh (``parallel.mesh.make_mesh``): the pool splits
+        into ``size`` contiguous blocks of slots (``max_streams`` must
+        divide evenly) and this rank computes its block on
+        ``mesh.device``. Every rank makes the same calls with the whole
+        pool's frames and gets the whole pool's results (all-gathered),
+        so the calls are collective: every rank makes them in the same
+        order.
       device: ``None`` means ``cuda`` (raises without it); ``"cpu"`` runs
-        the plain path.
+        the plain path; under a ``mesh``, the mesh's device.
     """
 
     def __init__(
@@ -80,11 +98,9 @@ class StreamServer:
         at_pool: str = "sp_argmax",
         decoder_impl: str = "deconv",
         quant_conv: str = "xla",
-        mesh=None,
+        mesh: Mesh | None = None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh: DistributedStreamServer is not ported")
         if fixation_source == "always":
             warnings.warn(
                 'fixation_source="always" advances the LSTM exactly once per stream '
@@ -95,6 +111,17 @@ class StreamServer:
             fixation_source = "static"
         if fixation_source not in ("idt", "static"):
             raise ValueError(f"unknown fixation_source {fixation_source!r}")
+        self.mesh = self._gather = checked(mesh)
+        # the slots this process computes: its block of the pool under a
+        # mesh, else all of them
+        self._rows = slice(0, max_streams)
+        if mesh is not None:
+            if max_streams % mesh.size:
+                raise ValueError(
+                    f"max_streams={max_streams} must divide evenly over the "
+                    f"{mesh.size}-rank mesh (one equal block of slots per rank)")
+            self._rows = local_batch_slice(max_streams, mesh)
+            device = mesh.device
         self.pipeline = GazePipeline(
             config, dtype=dtype, device=device, quant_sp=quant_sp, at_pool=at_pool,
             decoder_impl=decoder_impl, quant_conv=quant_conv,
@@ -107,8 +134,9 @@ class StreamServer:
         self._idt_dispersion = idt_dispersion_px
         self._idt_window = idt_window
         h, w = config.image.height, config.image.width
-        self._state = self.pipeline.init_state(max_streams)
-        self._prev = torch.zeros((max_streams, h, w, 3), dtype=torch.uint8, device=self.device)
+        rows = self._rows.stop - self._rows.start
+        self._state = self.pipeline.init_state(rows)
+        self._prev = torch.zeros((rows, h, w, 3), dtype=torch.uint8, device=self.device)
         self._active = np.zeros((max_streams,), bool)
         self._seen_first = np.zeros((max_streams,), bool)
         # trailing predicted-gaze window for online I-DT (NaN = no sample)
@@ -156,6 +184,9 @@ class StreamServer:
 
     @torch.inference_mode()
     def _reset_slot(self, slot: int) -> None:
+        if not self._rows.start <= slot < self._rows.stop:
+            return   # another rank's slot
+        slot -= self._rows.start
         fresh = self.pipeline.init_state(1)
 
         def put(cur, new):   # a new tensor: state tensors may alias each other
@@ -167,8 +198,9 @@ class StreamServer:
 
     # ---------------------------------------------------------- tick ----
     def _stage(self, frames):
-        """Start the host-to-device copy of a (S, H, W, 3) uint8 batch.
-        Returns (device tensor, the event that ends its copy or None).
+        """Start the host-to-device copy of this process's slots of a (S,
+        H, W, 3) uint8 batch. Returns (device tensor, the event that ends
+        its copy or None).
 
         On the card the batch goes through pinned host memory on the side
         stream. The copy's destination is allocated on that stream and
@@ -177,6 +209,7 @@ class StreamServer:
         pinned source is held by the caching host allocator until its
         copy has run. A batch already on the server's device is copied too:
         the caller may refill its buffer before the tick that reads it."""
+        frames = frames[self._rows]
         if torch.is_tensor(frames) and frames.device == self.device:
             return frames.clone(), None
         host = torch.as_tensor(np.asarray(frames, dtype=np.uint8))
@@ -203,13 +236,13 @@ class StreamServer:
             if self.fixation_source == "idt":
                 fixations = self._idt_labels()
             else:   # "static": one LSTM onset per stream, ever
-                fixations = np.ones((self.max_streams,), np.float32)
+                fixations = np.ones(self._active.shape, np.float32)
         fix = np.asarray(fixations, np.float32) * self._active.astype(np.float32)
         # streams without a previous frame keep their fresh state: the flow
         # of their first pair (against a stale or zero prev) is garbage
         first_np = ~self._seen_first & self._active
-        first = torch.from_numpy(first_np).to(self.device)
-        new_state, out = self.pipeline.step(self._state, self._prev, cur, fix)
+        first = torch.from_numpy(first_np[self._rows]).to(self.device)
+        new_state, out = self.pipeline.step(self._state, self._prev, cur, fix[self._rows])
 
         def keep_old(new, old):
             return torch.where(first.reshape((-1,) + (1,) * (new.dim() - 1)), old, new)
@@ -217,7 +250,7 @@ class StreamServer:
         self._state = _map_state(keep_old, new_state, self._state)
         self._prev.copy_(cur)   # the server's own buffer, never the caller's tensor
 
-        gaze = out["gaze"].cpu().numpy().copy()
+        gaze = all_gather_rows(out["gaze"], self._gather).cpu().numpy().copy()
         gaze[first_np] = -1.0
         gaze[~self._active] = -1.0
         self._seen_first |= self._active
@@ -229,17 +262,19 @@ class StreamServer:
         result = {"gaze": gaze}
         if self.keep_heatmaps:
             for k in ("heatmap", "saliency", "attention"):
-                result[k] = out[k].float().cpu().numpy()
+                result[k] = all_gather_rows(out[k].float(), self._gather).cpu().numpy()
         return result
 
     def tick(self, frames, fixations: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
         """Advance every active stream by one frame.
 
         Args:
-          frames: (max_streams, H, W, 3) uint8, the current frame per slot
-            (an inactive slot's content is ignored).
-          fixations: optional (max_streams,) fixation bits; without them
-            the server derives them per ``fixation_source``.
+          frames: (S, H, W, 3) uint8, the current frame per slot (an
+            inactive slot's content is ignored). S is ``max_streams``; on
+            a ``DistributedStreamServer`` it is this rank's
+            ``streams_per_host``.
+          fixations: optional (S,) fixation bits; without them the server
+            derives them per ``fixation_source``.
 
         Returns:
           "gaze" (S, 2) float32 and, with ``keep_heatmaps``, "heatmap",
@@ -269,3 +304,63 @@ class StreamServer:
         staged, fix = self._pending, self._pending_fix
         self._pending = self._pending_fix = None
         return self._advance(self._consume(staged), fix)
+
+
+class DistributedStreamServer(StreamServer):
+    """One stream pool over every rank of a mesh, each rank owning a
+    contiguous block of ``streams_per_host`` slots (counterpart of
+    ``gaze_tpu/serve.py::DistributedStreamServer``).
+
+    A rank is handed only its slots' frames, (streams_per_host, H, W, 3)
+    uint8, and returns only their results; ``attach``/``detach`` take
+    its local slot indices, and the I-DT fixations run per local slot.
+    So every array a rank passes or gets back covers its ``s_local =
+    streams_per_host`` slots, while ``max_streams`` is the whole pool's
+    size, ``streams_per_host x size``, as on the JAX server; nothing in
+    the rank's tick reads it.
+
+    The streams are independent, so the tick holds no collective: the
+    ranks need not tick in lockstep, and an ``attach``/``detach`` that
+    drains a pending ``submit()`` ticks this rank alone. (The JAX
+    server's tick is one program over a global array, so its drain is
+    collective, and a rank that attaches while the others do not shifts
+    their sequence of ticks; the port has no such hazard.) A reattached
+    slot starts from a fresh state and its first frame keeps it fresh,
+    as the JAX server's per-slot reset and first-frame revert do; the
+    reset is made at ``attach``, which touches only this rank's state
+    (the JAX server defers it into the tick, where an update of its
+    global state array is collective). ``quant_sp`` takes a ``QuantSP``
+    as ``StreamServer`` does. At one rank it is ``StreamServer`` with
+    ``max_streams = streams_per_host``.
+    """
+
+    def __init__(
+        self,
+        config: PipelineConfig,
+        weights: Dict[str, StateDict],
+        streams_per_host: int,
+        mesh: Mesh | None = None,
+        dtype: torch.dtype = torch.float32,
+        keep_heatmaps: bool = False,
+        fixation_source: str = "idt",
+        idt_dispersion_px: float = 8.0,
+        idt_window: int = 3,
+        quant_sp: QuantSP | None = None,
+        at_pool: str = "sp_argmax",
+        decoder_impl: str = "deconv",
+        quant_conv: str = "xla",
+    ):
+        if fixation_source not in ("idt", "static"):
+            raise ValueError(f"unknown fixation_source {fixation_source!r}")
+        if streams_per_host < 1:
+            raise ValueError(f"streams_per_host={streams_per_host}: need at least one slot")
+        mesh = checked(mesh if mesh is not None else global_mesh())
+        super().__init__(
+            config, weights, streams_per_host, dtype=dtype, keep_heatmaps=keep_heatmaps,
+            fixation_source=fixation_source, idt_dispersion_px=idt_dispersion_px,
+            idt_window=idt_window, quant_sp=quant_sp, at_pool=at_pool,
+            decoder_impl=decoder_impl, quant_conv=quant_conv, device=mesh.device)
+        self.mesh = mesh
+        self.n_proc, self.rank = mesh.size, mesh.rank
+        self.s_local = streams_per_host
+        self.max_streams = streams_per_host * mesh.size

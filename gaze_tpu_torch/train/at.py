@@ -15,7 +15,9 @@ pipeline's LSTM (``pipeline.lstm``), trained in place. Two batchings:
 
 The numpy schedule builders are the JAX package's, copied line for line
 (the port imports nothing of it), so one corpus gives the same windows
-in both packages.
+in both packages. Under a data ``mesh`` each rank feeds its rows
+(windows, or lanes with their carries) of the global batch, and the
+masked MSE divides by the global mask count.
 """
 
 from __future__ import annotations
@@ -27,7 +29,15 @@ import torch
 
 from gaze_tpu_torch.models.pipeline import GazePipeline
 from gaze_tpu_torch.models.weights import init_weights
-from gaze_tpu_torch.train.common import TrainState, jit_dp_step, make_optimizer, make_state, to_device
+from gaze_tpu_torch.core.distributed import all_reduce_sum_
+from gaze_tpu_torch.train.common import (
+    TrainState,
+    dp_reduce,
+    jit_dp_step,
+    make_optimizer,
+    make_state,
+    to_device,
+)
 
 
 def create_at_state(pipeline: GazePipeline, seed: Optional[int] = None) -> TrainState:
@@ -39,23 +49,27 @@ def create_at_state(pipeline: GazePipeline, seed: Optional[int] = None) -> Train
     return make_state(pipeline.lstm, make_optimizer(cfg.train))
 
 
-def _masked_mse(pred: torch.Tensor, target: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """sum((pred - target)^2 * m) / (sum(m) * C + 1e-8), m broadcast over C."""
+def _masked_mse(pred: torch.Tensor, target: torch.Tensor, m: torch.Tensor,
+                mesh=None) -> torch.Tensor:
+    """sum((pred - target)^2 * m) / (sum(m) * C + 1e-8), m broadcast over C;
+    under a ``mesh`` the rank's share: its sum over the global
+    denominator (the all-reduced mask count)."""
     err = (pred - target) ** 2 * m
-    return torch.sum(err) / (torch.sum(m) * pred.shape[-1] + 1e-8)
+    return torch.sum(err) / (all_reduce_sum_(torch.sum(m), mesh) * pred.shape[-1] + 1e-8)
 
 
 def make_at_train_step(pipeline: GazePipeline, mesh=None):
     """Stateless windows: ``batch`` = {"weights" (B, T, C), "mask" (B, T)};
-    the LSTM from zero carries predicts w[1:] from w[:-1]."""
+    the LSTM from zero carries predicts w[1:] from w[:-1]. With a
+    ``mesh``, this rank's rows of the global batch."""
     lstm = pipeline.lstm
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         batch = to_device(batch, pipeline.device)
         ws, mask = batch["weights"], batch["mask"]
         m = (mask[:, :-1] * mask[:, 1:])[..., None]
-        loss = _masked_mse(lstm(ws[:, :-1]), ws[:, 1:], m)
-        grads = torch.autograd.grad(loss, state.params)
+        loss = _masked_mse(lstm(ws[:, :-1]), ws[:, 1:], m, mesh)
+        loss, grads = dp_reduce(loss, torch.autograd.grad(loss, state.params), mesh)
         state.apply_gradients(grads)
         return state, {"loss": loss.detach()}
 
@@ -236,7 +250,8 @@ def make_at_tbptt_step(pipeline: GazePipeline, mesh=None):
     entry plus ``carry_c``/``carry_h`` (B, num_layers, hidden), the
     previous window's final carries (zeros first). ``reset`` zeroes a
     lane's carry at a video start. The metrics return the new carries,
-    detached (truncated BPTT)."""
+    detached (truncated BPTT). With a ``mesh``, this rank's lanes of the
+    global batch, and their carries."""
     L = pipeline.config.at.num_layers
     lstm = pipeline.lstm
 
@@ -244,8 +259,8 @@ def make_at_tbptt_step(pipeline: GazePipeline, mesh=None):
         batch = to_device(batch, pipeline.device)
         mask = batch["mask"]
         new, pred = lstm.rollout(_carries(batch, L), batch["inputs"])
-        loss = _masked_mse(pred, batch["targets"], mask[..., None])
-        grads = torch.autograd.grad(loss, state.params)
+        loss = _masked_mse(pred, batch["targets"], mask[..., None], mesh)
+        loss, grads = dp_reduce(loss, torch.autograd.grad(loss, state.params), mesh)
         state.apply_gradients(grads)
         return state, {
             "loss": loss.detach(),

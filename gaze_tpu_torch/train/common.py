@@ -6,6 +6,20 @@ the pipeline's modules (its trainable parameters and its BatchNorm
 running statistics) plus the optimizer's moments and the step count; a
 step function updates it in place on the module's device.
 
+Data parallelism (a step made with ``mesh=``) keeps the JAX step's
+global-batch semantics without ``DistributedDataParallel``, whose
+reducer hooks never fire under the ``torch.autograd.grad`` the steps
+use. Each rank feeds its rows of the global batch
+(``core.distributed.local_batch_rows``) and computes its share of the
+global loss: every mean over the batch is a sum over the rank's rows
+divided by the global denominator (``floss``, the AT masked MSE), and
+train-mode BatchNorm normalizes with the global batch's statistics. The
+shares add up to the global loss, so one SUM all-reduce of the
+flattened gradients and the loss (:func:`dp_reduce`), before AdamW,
+gives every rank the global gradient: the clip reads its global norm,
+and the parameters, moments and BatchNorm statistics stay equal on
+every rank, bit for bit.
+
 The optimizer is optax's, written out (``optax.adamw`` behind
 ``optax.clip_by_global_norm``), not ``torch.optim.AdamW``, whose update
 differs:
@@ -32,6 +46,8 @@ import torch
 import torch.nn as nn
 
 from gaze_tpu_torch.core.config import TrainConfig
+from gaze_tpu_torch.core.distributed import all_reduce_flat_
+from gaze_tpu_torch.parallel.mesh import Mesh, checked
 
 Schedule = Callable[[int], float]
 LearningRate = Union[float, Schedule]
@@ -239,6 +255,7 @@ def microbatch_value_and_grad(
     params: Sequence[torch.Tensor],
     batch: Dict[str, torch.Tensor],
     num_microbatches: int,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Tuple[torch.Tensor, Any], List[torch.Tensor]]:
     """Gradient accumulation: ``batch`` split into ``num_microbatches``
     equal leading-dim slices, ``loss_fn(microbatch) -> (loss, aux)``
@@ -248,7 +265,13 @@ def microbatch_value_and_grad(
     With train-mode BatchNorm each microbatch normalizes with its own
     statistics, and ``aux``, the new running statistics, is the last
     microbatch's update taken from the step's initial statistics (the
-    forward does not store them)."""
+    forward does not store them).
+
+    With a ``mesh``, ``batch`` is the rank's rows in the microbatch
+    layout (``local_batch_rows``: slice i is its share of global
+    microbatch i), ``loss_fn`` returns the rank's share of the global
+    loss, and the loss and gradients come back all-reduced
+    (:func:`dp_reduce`): the global ones, on every rank."""
     params = list(params)
     k = max(1, num_microbatches)
     for key, v in batch.items():
@@ -262,17 +285,32 @@ def microbatch_value_and_grad(
         grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
         loss = loss.detach()
         if k == 1:
-            return (loss, aux), list(grads)
+            loss, grads = dp_reduce(loss, grads, mesh)
+            return (loss, aux), grads
         loss_sum = loss if loss_sum is None else loss_sum + loss
         grad_sum = list(grads) if grad_sum is None else torch._foreach_add(grad_sum, grads)
-    return (loss_sum / k, aux), torch._foreach_div(grad_sum, k)
+    loss, grads = dp_reduce(loss_sum / k, torch._foreach_div(grad_sum, k), mesh)
+    return (loss, aux), grads
 
 
-def jit_dp_step(step_fn: Callable, mesh: Any = None) -> Callable:
-    """The step as it runs on one card (the port does not compile it).
-    A data-parallel ``mesh`` waits for the distributed slice."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training is not ported yet")
+def dp_reduce(loss: torch.Tensor, grads: Sequence[torch.Tensor], mesh: Optional[Mesh]
+              ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The global loss and gradients from the rank's shares: one SUM
+    all-reduce of the flattened gradients with the loss appended.
+    Without a mesh they pass through."""
+    if mesh is None:
+        return loss, list(grads)
+    out = all_reduce_flat_([g.detach() for g in grads] + [loss.detach().reshape(1)], mesh)
+    return out[-1].reshape(()), out[:-1]
+
+
+def jit_dp_step(step_fn: Callable, mesh: Optional[Mesh] = None) -> Callable:
+    """The step as it runs (the port compiles nothing). A step made for
+    a ``mesh`` does its own reductions (:func:`dp_reduce`, the global
+    denominators, BatchNorm's global statistics) and takes this rank's
+    rows of each global batch; a process outside the mesh is refused
+    here."""
+    checked(mesh)
     return step_fn
 
 

@@ -5,7 +5,9 @@ Counterpart of ``gaze_tpu/train/lf.py``. The frozen SP and AT forward
 step; the maps never leave the card. The state's module is the
 pipeline's LF head (``pipeline.lf``), trained in place; the frozen SP and
 AT state dicts are loaded into ``pipeline.sp`` and ``pipeline.lstm``
-when a step function is made.
+when a step function is made. Under a data ``mesh`` each rank feeds its
+rows of the global batch; the frozen maps are per sample, and the loss
+is the global one (``floss``'s global weight sum).
 """
 
 from __future__ import annotations
@@ -20,7 +22,14 @@ from gaze_tpu_torch.models.at import attention_map, fixation_pool
 from gaze_tpu_torch.models.pipeline import GazePipeline
 from gaze_tpu_torch.models.weights import StateDict, init_weights, load_state
 from gaze_tpu_torch.ops.heatmap import render_gaussian
-from gaze_tpu_torch.train.common import TrainState, jit_dp_step, make_optimizer, make_state, to_device
+from gaze_tpu_torch.train.common import (
+    TrainState,
+    dp_reduce,
+    jit_dp_step,
+    make_optimizer,
+    make_state,
+    to_device,
+)
 
 SCORE_KEYS = ("heatmap", "saliency", "attention")
 
@@ -56,11 +65,11 @@ def _frozen_maps(pipeline: GazePipeline, batch: Dict[str, torch.Tensor]):
     return sal, amap
 
 
-def _lf_loss(pipeline: GazePipeline, head, sal, amap, gaze, weight) -> torch.Tensor:
+def _lf_loss(pipeline: GazePipeline, head, sal, amap, gaze, weight, mesh) -> torch.Tensor:
     cfg = pipeline.config
     target = render_gaussian(gaze, cfg.image.height, cfg.image.width, cfg.image.heatmap_sigma)
     pred = head(torch.stack([sal, amap], dim=-1))
-    return floss(pred, target, cfg.loss, sample_weight=weight)
+    return floss(pred, target, cfg.loss, sample_weight=weight, mesh=mesh)
 
 
 def make_lf_train_step(pipeline: GazePipeline, frozen: Dict[str, StateDict], mesh=None):
@@ -71,8 +80,9 @@ def make_lf_train_step(pipeline: GazePipeline, frozen: Dict[str, StateDict], mes
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         batch = to_device(batch, pipeline.device)
         sal, amap = _frozen_maps(pipeline, batch)
-        loss = _lf_loss(pipeline, state.module, sal, amap, batch["gaze"], batch.get("valid"))
-        grads = torch.autograd.grad(loss, state.params)
+        loss = _lf_loss(pipeline, state.module, sal, amap, batch["gaze"], batch.get("valid"),
+                        mesh)
+        loss, grads = dp_reduce(loss, torch.autograd.grad(loss, state.params), mesh)
         state.apply_gradients(grads)
         return state, {"loss": loss.detach()}
 
@@ -121,8 +131,8 @@ def make_lf_rollout_train_step(pipeline: GazePipeline, frozen: Dict[str, StateDi
         amap = torch.stack(amaps, dim=1).reshape(B * T, *amaps[0].shape[1:])
         loss = _lf_loss(pipeline, state.module, sal, amap,
                         batch["gaze"][:, 1:].reshape(B * T, 2).to(torch.float32),
-                        batch["valid"][:, 1:].reshape(B * T))
-        grads = torch.autograd.grad(loss, state.params)
+                        batch["valid"][:, 1:].reshape(B * T), mesh)
+        loss, grads = dp_reduce(loss, torch.autograd.grad(loss, state.params), mesh)
         state.apply_gradients(grads)
         return state, {"loss": loss.detach()}
 

@@ -52,7 +52,7 @@ def calibrate_qat_scales(pipeline: GazePipeline, frame_pairs,
 
 
 def _fake_quant_saliency(pipeline: GazePipeline, act_scales: Scales, rgb_in: torch.Tensor,
-                         flow_in: torch.Tensor, train: bool
+                         flow_in: torch.Tensor, train: bool, mesh=None
                          ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Saliency through the fake-quant streams and the float tail:
     (saliency, the new BatchNorm statistics in train mode, else None).
@@ -69,18 +69,19 @@ def _fake_quant_saliency(pipeline: GazePipeline, act_scales: Scales, rgb_in: tor
     fs = stream(sp.spatial, act_scales["spatial"], rgb_in).to(pipeline.dtype)
     ft = stream(sp.temporal, act_scales["temporal"], flow_in).to(pipeline.dtype)
     if train:
-        return sp.fuse_decode_train(fs, ft)
+        return sp.fuse_decode_train(fs, ft, mesh)
     return sp.fuse_decode(fs, ft), None
 
 
 def qat_loss(pipeline: GazePipeline, act_scales: Scales, rgb_in: torch.Tensor,
-             flow_in: torch.Tensor, mb: Dict[str, torch.Tensor]
+             flow_in: torch.Tensor, mb: Dict[str, torch.Tensor], mesh=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(focal loss, the new BatchNorm statistics) of the train-mode
     fake-quant saliency on preprocessed inputs (``train/sp.py:sp_loss``'s
-    counterpart)."""
-    sal, stats = _fake_quant_saliency(pipeline, act_scales, rgb_in, flow_in, train=True)
-    return saliency_loss(pipeline, sal, mb), stats
+    counterpart; global under a data ``mesh``)."""
+    sal, stats = _fake_quant_saliency(pipeline, act_scales, rgb_in, flow_in, train=True,
+                                      mesh=mesh)
+    return saliency_loss(pipeline, sal, mb, mesh), stats
 
 
 def make_qat_train_step(pipeline: GazePipeline, act_scales: Scales, mesh=None):
@@ -88,7 +89,8 @@ def make_qat_train_step(pipeline: GazePipeline, act_scales: Scales, mesh=None):
     the state is the SP stage's (``create_sp_state``)."""
     scales = _on_device(act_scales, pipeline.device)
     return make_sp_like_train_step(
-        pipeline, lambda p, rgb_in, flow_in, mb: qat_loss(p, scales, rgb_in, flow_in, mb), mesh)
+        pipeline, lambda p, rgb_in, flow_in, mb, m: qat_loss(p, scales, rgb_in, flow_in, mb, m),
+        mesh)
 
 
 def make_qat_eval_step(pipeline: GazePipeline, act_scales: Scales):

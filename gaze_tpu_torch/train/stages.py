@@ -30,6 +30,20 @@ subject) train, the held-out subject's validate, and
 (``steps_per_epoch`` counts synthetic batches only). Without it they
 read the synthetic corpus. The pretrained-VGG import waits for the CLI
 slice.
+
+Data-parallel training, one process per card (``core.distributed``):
+every rank builds the same pipeline (the same seeds) on its card, makes
+the mesh with :func:`data_parallel_mesh` (the JAX CLI's sizing) and
+calls the stages with ``mesh=``. Each rank reads the same global batches
+and stages its rows; rank 0 writes the checkpoints and the others wait
+at a barrier; a resume and the final restore read on every rank, and
+validation runs unsharded on every rank, so every rank ends with the
+same weights::
+
+    initialize()                                   # torchrun's environment
+    pipe = GazePipeline(parity_config(), device=rank_device())
+    mesh = data_parallel_mesh(opts.batch_size)     # None below 2 ranks
+    sp = run_train_sp(opts, pipe, mesh)
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gaze_tpu_torch.core.checkpoint import (
     latest_step,
@@ -47,7 +62,9 @@ from gaze_tpu_torch.core.checkpoint import (
     restore_checkpoint,
     save_best_checkpoint,
     save_checkpoint,
+    writes,
 )
+from gaze_tpu_torch.core.distributed import barrier, local_rows
 from gaze_tpu_torch.core.config import PipelineConfig
 from gaze_tpu_torch.data.gtea import FrameRecord, build_manifest, clip_batches, pair_batches
 from gaze_tpu_torch.data.prefetch import device_prefetch
@@ -60,6 +77,7 @@ from gaze_tpu_torch.data.synthetic import (
 from gaze_tpu_torch.models.pipeline import GazePipeline
 from gaze_tpu_torch.models.qat import load_act_scales, save_act_scales
 from gaze_tpu_torch.models.weights import StateDict, load_state
+from gaze_tpu_torch.parallel.mesh import Mesh, make_mesh
 from gaze_tpu_torch.train.at import (
     build_at_validation_windows,
     build_tbptt_schedule,
@@ -118,6 +136,26 @@ class StageOptions:
     precomputed_flow: str = "auto"    # GTEA flow images: "auto", "on" or "off"
     quant_calib_batches: int = 8      # training batches that calibrate QAT's scales
     quant_percentile: Optional[float] = None   # calibrate at this percentile of |x|, not the max
+
+
+def data_parallel_mesh(batch_size: int, dp_devices: Optional[int] = None,
+                       device=None) -> Optional[Mesh]:
+    """The JAX CLI's data-parallel sizing (``gaze_tpu/cli.py:1266-1270``):
+    a mesh over the largest divisor of ``batch_size`` that fits the
+    ranks of the job (or ``dp_devices``), None when that is 1. Every
+    process calls it; a rank beyond the mesh is refused by the stages."""
+    avail = dp_devices or (dist.get_world_size() if dist.is_initialized() else 1)
+    n_dp = max(d for d in range(1, avail + 1) if batch_size % d == 0)
+    return make_mesh(n_dp, device=device) if n_dp > 1 else None
+
+
+def _fit_mesh(n: int, mesh: Optional[Mesh]) -> Tuple[int, Optional[Mesh]]:
+    """AT's batch or lane count on a mesh (``gaze_tpu/cli.py:731-736``,
+    ``:750-755``): rounded down to a multiple of the mesh size, or no
+    mesh when it is smaller than the mesh."""
+    if mesh is None or n < mesh.size:
+        return n, None
+    return n // mesh.size * mesh.size, mesh
 
 
 def _flow_mode(opts: StageOptions) -> Optional[bool]:
@@ -185,41 +223,47 @@ def _snapshot(module: torch.nn.Module) -> StateDict:
 
 
 def _run_sp_like_stage(opts: StageOptions, pipeline: GazePipeline, state: TrainState,
-                       ckpt_dir: str, step_fn, eval_fn, stage: str) -> StateDict:
-    """The loop the SP and QAT stages share: prefetched batches -> train
-    step; periodic checkpoints; validation AAE with best tracking (every
-    ``eval_every`` steps and at the end). Returns the best SP state dict,
-    also left in ``pipeline.sp``."""
+                       ckpt_dir: str, step_fn, eval_fn, stage: str,
+                       mesh: Optional[Mesh]) -> StateDict:
+    """The loop the SP and QAT stages share: prefetched batches (this
+    rank's rows under a ``mesh``) -> train step; periodic checkpoints;
+    validation AAE with best tracking (every ``eval_every`` steps and at
+    the end). Returns the best SP state dict, also left in
+    ``pipeline.sp``."""
     cfg = pipeline.config
     logger = StepLogger(stage, every=opts.log_every)
 
     def validate_and_track() -> None:
         val = _val_aae(eval_fn, state, next(iter(_batches(opts, cfg, train=False))))
         logger.log(state.step, val, force=True)
-        save_best_checkpoint(ckpt_dir, state.step, state, val["val_aae"])
+        save_best_checkpoint(ckpt_dir, state.step, state, val["val_aae"], mesh)
 
     for _ in range(opts.epochs):
-        for batch in device_prefetch(_batches(opts, cfg, train=True), pipeline.device):
+        for batch in device_prefetch(_batches(opts, cfg, train=True), pipeline.device,
+                                     mesh=mesh, num_microbatches=cfg.train.grad_accum):
             state, metrics = step_fn(state, batch)
             logger.log(state.step, metrics)
             if opts.ckpt_every and state.step % opts.ckpt_every == 0:
-                save_checkpoint(ckpt_dir, state.step, state)
+                save_checkpoint(ckpt_dir, state.step, state, mesh)
             if opts.eval_every and state.step % opts.eval_every == 0:
                 validate_and_track()
     validate_and_track()   # the stage-end validation: a best always exists
-    save_checkpoint(ckpt_dir, state.step, state)
+    save_checkpoint(ckpt_dir, state.step, state, mesh)
     restore_best_or_latest(ckpt_dir, state)
     return _snapshot(pipeline.sp)
 
 
-def run_train_sp(opts: StageOptions, pipeline: GazePipeline) -> StateDict:
+def run_train_sp(opts: StageOptions, pipeline: GazePipeline,
+                 mesh: Optional[Mesh] = None) -> StateDict:
     """SP stage (``_run_sp_like_stage``) from fresh weights, or resumed
-    from ``<save_dir>/sp``'s latest checkpoint."""
+    from ``<save_dir>/sp``'s latest checkpoint; data-parallel over
+    ``mesh``."""
     state = create_sp_state(pipeline)
     ckpt_dir = opts.sp_ckpt or os.path.join(opts.save_dir, "sp")
     restore_checkpoint(ckpt_dir, state)
-    return _run_sp_like_stage(opts, pipeline, state, ckpt_dir, make_sp_train_step(pipeline),
-                              make_sp_eval_step(pipeline), "sp")
+    return _run_sp_like_stage(opts, pipeline, state, ckpt_dir,
+                              make_sp_train_step(pipeline, mesh),
+                              make_sp_eval_step(pipeline), "sp", mesh)
 
 
 def _calibration_pairs(opts: StageOptions, cfg: PipelineConfig) -> List[tuple]:
@@ -234,7 +278,7 @@ def _calibration_pairs(opts: StageOptions, cfg: PipelineConfig) -> List[tuple]:
 
 
 def run_train_qat(opts: StageOptions, pipeline: GazePipeline,
-                  sp_state: StateDict) -> StateDict:
+                  sp_state: StateDict, mesh: Optional[Mesh] = None) -> StateDict:
     """QAT stage: fine-tune the SP streams through the deployment int8
     grids (``train/qat.py``), from the trained ``sp_state``, checkpoints
     in ``<save_dir>/sp_qat`` (and ``sp_qat_best``) with the scales file
@@ -244,7 +288,8 @@ def run_train_qat(opts: StageOptions, pipeline: GazePipeline,
     latest checkpoint and keeps the saved scales, the grids its weights
     adapted to (the JAX CLI calibrates again from the fine-tuned weights
     and overwrites the file). Returns the best state dict, also left in
-    ``pipeline.sp``."""
+    ``pipeline.sp``. Under a ``mesh`` every rank calibrates the same
+    scales and rank 0 writes them."""
     cfg = pipeline.config
     state = create_sp_state(pipeline)
     load_state(pipeline.sp, sp_state)
@@ -256,10 +301,12 @@ def run_train_qat(opts: StageOptions, pipeline: GazePipeline,
         if not pairs:
             raise ValueError("QAT: no training batches for activation-scale calibration")
         scales = calibrate_qat_scales(pipeline, pairs, percentile=opts.quant_percentile)
-        save_act_scales(ckpt_dir, scales)
+        if writes(mesh):
+            save_act_scales(ckpt_dir, scales)
+        barrier(mesh)
     return _run_sp_like_stage(opts, pipeline, state, ckpt_dir,
-                              make_qat_train_step(pipeline, scales),
-                              make_qat_eval_step(pipeline, scales), "qat")
+                              make_qat_train_step(pipeline, scales, mesh),
+                              make_qat_eval_step(pipeline, scales), "qat", mesh)
 
 
 def _extract_video_weights(opts: StageOptions, pipeline: GazePipeline,
@@ -298,12 +345,18 @@ def _extract_video_weights(opts: StageOptions, pipeline: GazePipeline,
 
 
 def run_train_lstm(opts: StageOptions, pipeline: GazePipeline,
-                   sp_state: StateDict) -> StateDict:
+                   sp_state: StateDict, mesh: Optional[Mesh] = None) -> StateDict:
     """AT stage: fixation weight sequences extracted with the frozen SP,
     then the LSTM trained on stateful TBPTT windows (default) or on
     independent zero-carry windows (``at_stateless``), validated on
     held-out fixations with the matching statefulness each epoch. Returns
-    the best AT state dict, also left in ``pipeline.lstm``."""
+    the best AT state dict, also left in ``pipeline.lstm``.
+
+    Under a ``mesh`` every rank extracts every sequence; the window batch
+    or the lane count is rounded down to a multiple of the mesh size and
+    each rank trains on its rows (lanes and their carries), or, when
+    there are fewer than the mesh's ranks, every rank trains on all of
+    them unsharded, as the JAX CLI drops the mesh there."""
     cfg = pipeline.config
     video_w = [w for w in _extract_video_weights(opts, pipeline, sp_state) if len(w) >= 2]
     if not video_w:
@@ -333,7 +386,7 @@ def run_train_lstm(opts: StageOptions, pipeline: GazePipeline,
         if val_mse is None:
             return
         logger.log(state.step, {"val_mse": val_mse}, force=True)
-        save_best_checkpoint(ckpt_dir, state.step, state, val_mse)
+        save_best_checkpoint(ckpt_dir, state.step, state, val_mse, mesh)
 
     if opts.at_stateless:
         seqs, masks = [], []
@@ -344,62 +397,64 @@ def run_train_lstm(opts: StageOptions, pipeline: GazePipeline,
                 seqs.append(s)
                 masks.append(m)
         seqs, masks = np.concatenate(seqs), np.concatenate(masks)
-        bs = min(opts.batch_size, len(seqs))
-        step_fn = make_at_train_step(pipeline)
+        bs, at_mesh = _fit_mesh(min(opts.batch_size, len(seqs)), mesh)
+        step_fn = make_at_train_step(pipeline, at_mesh)
         rng = np.random.default_rng(0)
         for _ in range(opts.epochs):
             order = rng.permutation(len(seqs))
             for s in range(0, len(order) - bs + 1, bs):
                 idx = order[s:s + bs]
-                state, metrics = step_fn(state, {"weights": seqs[idx], "mask": masks[idx]})
+                state, metrics = step_fn(
+                    state, local_rows({"weights": seqs[idx], "mask": masks[idx]}, at_mesh))
                 logger.log(state.step, metrics)
             validate_and_track()
     else:
-        lanes = max(1, min(opts.batch_size, len(video_w)))
+        lanes, at_mesh = _fit_mesh(max(1, min(opts.batch_size, len(video_w))), mesh)
         schedule = build_tbptt_schedule(video_w, opts.seq_len, lanes)
-        step_fn = make_at_tbptt_step(pipeline)
-        shape = (lanes, cfg.at.num_layers, cfg.at.hidden_size)
+        step_fn = make_at_tbptt_step(pipeline, at_mesh)
+        shape = (lanes // (at_mesh.size if at_mesh else 1), cfg.at.num_layers,
+                 cfg.at.hidden_size)
         for _ in range(opts.epochs):
             carry_c = torch.zeros(shape, device=pipeline.device)
             carry_h = torch.zeros(shape, device=pipeline.device)
             for sched in schedule:
-                batch = dict(sched, carry_c=carry_c, carry_h=carry_h)
+                batch = dict(local_rows(sched, at_mesh), carry_c=carry_c, carry_h=carry_h)
                 state, metrics = step_fn(state, batch)
                 carry_c, carry_h = metrics["carry_c"], metrics["carry_h"]
                 logger.log(state.step, {"loss": metrics["loss"]})
             validate_and_track()
 
-    save_checkpoint(ckpt_dir, state.step, state)
+    save_checkpoint(ckpt_dir, state.step, state, mesh)
     restore_best_or_latest(ckpt_dir, state)
     return _snapshot(pipeline.lstm)
 
 
 def run_train_late(opts: StageOptions, pipeline: GazePipeline, sp_state: StateDict,
-                   at_state: StateDict) -> TrainState:
+                   at_state: StateDict, mesh: Optional[Mesh] = None) -> TrainState:
     """LF stage on the frozen SP and AT: teacher-forced batches, or
-    rolled-out clips of ``lf_rollout`` frames; the teacher-forced AAE of
-    a held-out batch tracks the best each epoch. Returns the LF state
-    with the best (else the latest) checkpoint restored into
-    ``pipeline.lf``."""
+    rolled-out clips of ``lf_rollout`` frames (this rank's rows under a
+    ``mesh``); the teacher-forced AAE of a held-out batch tracks the best
+    each epoch. Returns the LF state with the best (else the latest)
+    checkpoint restored into ``pipeline.lf``."""
     cfg = pipeline.config
     frozen = {"sp": sp_state, "at": at_state}
     state = create_lf_state(pipeline)
     ckpt_dir = opts.lf_ckpt or os.path.join(opts.save_dir, "lf")
     restore_checkpoint(ckpt_dir, state)
     if opts.lf_rollout > 0:
-        step_fn = make_lf_rollout_train_step(pipeline, frozen)
+        step_fn = make_lf_rollout_train_step(pipeline, frozen, mesh)
         batches = lambda: _clip_batches(opts, cfg, opts.lf_rollout)  # noqa: E731
     else:
-        step_fn = make_lf_train_step(pipeline, frozen)
+        step_fn = make_lf_train_step(pipeline, frozen, mesh)
         batches = lambda: _batches(opts, cfg, train=True)  # noqa: E731
     eval_fn = make_lf_eval_step(pipeline, frozen)
     logger = StepLogger("lf", every=opts.log_every)
     for _ in range(opts.epochs):
-        for batch in device_prefetch(batches(), pipeline.device):
+        for batch in device_prefetch(batches(), pipeline.device, mesh=mesh):
             state, metrics = step_fn(state, batch)
             logger.log(state.step, metrics)
         val = _val_aae(eval_fn, state, next(iter(_batches(opts, cfg, train=False))))
         logger.log(state.step, {"val_aae": val["val_aae"]}, force=True)
-        save_best_checkpoint(ckpt_dir, state.step, state, val["val_aae"])
-    save_checkpoint(ckpt_dir, state.step, state)
+        save_best_checkpoint(ckpt_dir, state.step, state, val["val_aae"], mesh)
+    save_checkpoint(ckpt_dir, state.step, state, mesh)
     return restore_best_or_latest(ckpt_dir, state)

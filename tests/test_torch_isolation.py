@@ -5,8 +5,7 @@
   decoder is built from the port's own ``csrc/gaze_io.cpp``); a fresh
   interpreter that runs a CPU step, the serving surface, the three
   training stages and the GTEA data layer has none of them loaded.
-- Entry points default to CUDA and raise without it; data-parallel
-  training (``mesh=``) raises until it is ported.
+- Entry points default to CUDA and raise without it.
 - On CPU tensors the kernel wrappers take their plain versions and the
   launch counters stay at 0; bad inputs are refused.
 - The port's config copy (training's included) has the JAX
@@ -31,11 +30,7 @@ from gaze_tpu_torch.core import config as tconfig
 from gaze_tpu_torch.data import native_io
 from gaze_tpu_torch.data.flow_extract import FlowExtractSpec, extract_flow_images
 from gaze_tpu_torch.data.prefetch import device_prefetch
-from gaze_tpu_torch.evaluation.rollout import (
-    make_rollout_chunk_fn,
-    rollout_eval_arrays,
-    rollout_eval_videos,
-)
+from gaze_tpu_torch.evaluation.rollout import make_rollout_chunk_fn
 from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
 from gaze_tpu_torch.ops import cuda
 from gaze_tpu_torch.ops.conv_int8 import ConvTap, conv3x3_int8_plain
@@ -45,10 +40,6 @@ from gaze_tpu_torch.ops.cuda.warp import warp3
 from gaze_tpu_torch.ops.tvl1 import tvl1_flow
 from gaze_tpu_torch.ops.warp import warp3_plain
 from gaze_tpu_torch.serve import StreamServer
-from gaze_tpu_torch.train.at import make_at_tbptt_step, make_at_train_step
-from gaze_tpu_torch.train.lf import make_lf_rollout_train_step, make_lf_train_step
-from gaze_tpu_torch.train.qat import make_qat_train_step
-from gaze_tpu_torch.train.sp import make_sp_train_step
 from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -77,7 +68,8 @@ def test_no_module_imports_jax_or_the_jax_package():
             "core/checkpoint.py", "data/augment.py", "data/prefetch.py",
             "utils/logging.py", "data/video.py", "data/native_io.py", "data/gtea.py",
             "data/flow_extract.py", "models/quant_tail.py", "models/qat.py", "train/qat.py",
-            "ops/int8_gemm.py"} <= names
+            "ops/int8_gemm.py", "parallel/mesh.py", "parallel/__init__.py",
+            "core/distributed.py"} <= names
     bad = {str(p.relative_to(ROOT)): sorted(imported_roots(p) & set(FORBIDDEN))
            for p in sources}
     assert not {k: v for k, v in bad.items() if v}
@@ -219,50 +211,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert next(device_prefetch(iter([{"x": np.zeros(1)}]), "cpu"))["x"].device.type == "cpu"
 
 
-@pytest.mark.parametrize("make", ["sp", "at", "at_tbptt", "lf", "lf_rollout", "qat"])
-def test_data_parallel_training_waits_for_the_distributed_slice(make):
-    """Each train step takes ``jit_dp_step``'s ``mesh=``, which raises
-    until DDP is ported."""
-    pipe = GazePipeline(tiny_config(), device="cpu")
-    frozen = {"sp": pipe.sp.state_dict(), "at": pipe.lstm.state_dict()}
-    scales = {s: {"conv1_1": torch.ones(())} for s in ("spatial", "temporal")}
-    fn = {"sp": lambda **kw: make_sp_train_step(pipe, **kw),
-          "qat": lambda **kw: make_qat_train_step(pipe, scales, **kw),
-          "at": lambda **kw: make_at_train_step(pipe, **kw),
-          "at_tbptt": lambda **kw: make_at_tbptt_step(pipe, **kw),
-          "lf": lambda **kw: make_lf_train_step(pipe, frozen, **kw),
-          "lf_rollout": lambda **kw: make_lf_rollout_train_step(pipe, frozen, **kw)}[make]
-    assert callable(fn())
-    with pytest.raises(NotImplementedError):
-        fn(mesh=object())
-
-
-@pytest.mark.parametrize("kwargs", [
-    dict(server_mesh=True),
-    dict(rollout_mesh=True),
-    dict(rollout_chunk_fn_mesh=True),
-    dict(rollout_videos_mesh=True),
-])
-def test_unported_options_raise(kwargs):
-    """bf16, the half-grid flow, ``quant_sp``, the flow-image input, both
-    AT poolings and all three decoders are ported (held against JAX in
-    ``test_torch_options.py``), and the int8 tail
-    (``test_torch_quant_tail.py``); the sharded server and rollouts (of
-    arrays and of GTEA videos) are not."""
-    pipe = GazePipeline(tiny_config(), device="cpu")
-    f = np.zeros((1, 2, 32, 32, 3), np.uint8)
-    (what,) = kwargs
-    with pytest.raises(NotImplementedError):
-        if what == "server_mesh":
-            StreamServer(tiny_config(), pipe.state_dicts(), 2, device="cpu", mesh=object())
-        elif what == "rollout_mesh":
-            rollout_eval_arrays(pipe, f, np.zeros((1, 2, 2)), np.ones((1, 2)), mesh=object())
-        elif what == "rollout_videos_mesh":
-            rollout_eval_videos(pipe, {}, mesh=object())
-        else:
-            make_rollout_chunk_fn(pipe, mesh=object())
-
-
 def test_unknown_options_and_flow_img_raise():
     with pytest.raises(ValueError):
         GazePipeline(tiny_config(), device="cpu", at_pool="nearest")
@@ -391,7 +339,7 @@ def test_config_copy_matches_the_jax_defaults(name):
     theirs_fields = {f.name for f in dataclasses.fields(theirs)}
     if name == "PipelineConfig":
         # the port's tree holds the inference, evaluation and training
-        # sections; mesh waits for the distributed slice
+        # sections; its mesh is a runtime object (``make_mesh``), not config
         assert ours_fields == {"image", "tvl1", "sp", "at", "lf", "loss", "camera", "train"}
         assert theirs_fields - ours_fields == {"mesh"}
     elif name == "CameraConfig":

@@ -108,7 +108,7 @@ def test_empty_records_and_mesh_raise(corpus):
     with pytest.raises(ValueError, match="empty record lists"):
         jrollout.rollout_eval_videos(corpus["jpipe"], corpus["v"], dict(corpus["jrecs"],
                                                                        Zed_Nil=[]))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):   # a mesh is a parallel.mesh.Mesh
         rollout.rollout_eval_videos(corpus["pipe"], corpus["recs"], mesh=object())
 
 

@@ -40,6 +40,7 @@ from gaze_tpu_torch.core.config import TrainConfig
 from gaze_tpu_torch.evaluation.losses import floss
 from gaze_tpu_torch.models.lf import LateFusion
 from gaze_tpu_torch.ops.heatmap import render_gaussian
+from gaze_tpu_torch.parallel.mesh import make_mesh
 from gaze_tpu_torch.train import common
 from gaze_tpu_torch.train.lf import create_lf_state
 from gaze_tpu_torch.train.sp import create_sp_state
@@ -271,7 +272,9 @@ def common_adam(opt_state):
 def test_dp_mesh_waits_for_the_distributed_slice():
     f = lambda s, b: (s, {})  # noqa: E731
     assert common.jit_dp_step(f) is f
-    with pytest.raises(NotImplementedError):
+    # the distributed slice is ported: a mesh passes, anything else is refused
+    assert common.jit_dp_step(f, make_mesh(device="cpu")) is f
+    with pytest.raises(TypeError):
         common.jit_dp_step(f, mesh=object())
     assert dataclasses.is_dataclass(common.AdamWState)
 

@@ -161,5 +161,5 @@ def test_eval_step(case, score_key):
 def test_unknown_score_key_and_mesh(case):
     with pytest.raises(ValueError):
         tlf.make_lf_eval_step(case["pipe"], case["frozen"], "final")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):   # a mesh is a parallel.mesh.Mesh
         tlf.make_lf_train_step(case["pipe"], case["frozen"], mesh=object())

@@ -272,7 +272,7 @@ def test_flip_mask_properties():
 
 def test_training_mesh_and_kernels_refuse_what_they_cannot_run(case):
     pipe, st = port(case)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):   # a mesh is a parallel.mesh.Mesh
         tsp.make_sp_train_step(pipe, mesh=object())
     from gaze_tpu_torch.ops.cuda.warp import warp3
 
