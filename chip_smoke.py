@@ -96,7 +96,7 @@ Then the distributed phases, one process per card over
   videos, sums equal to that phase's.
 
 Then the data layer, on a GTEA tree the script writes to a temporary
-directory removed at the end (8 videos x 33 frames at the native 720x960,
+directory removed at the end (8 videos x 25 frames at the native 720x960,
 gaze txt with untracked rows, fixsac txt for four videos, one video
 without gaze txt, one more video through an MJPEG AVI):
 
@@ -119,6 +119,25 @@ without gaze txt, one more video through an MJPEG AVI):
   pair of the training subjects), SP with ``precomputed_flow="off"``
   (K1/K2 in every step, exact launches per step), then SP -> AT -> LF with
   "auto" (the flow images: no K1/K2 launch).
+
+Last, the command line (``gaze_tpu_torch.cli``) on that tree, with cuDNN
+deterministic so that two pipelines on the same weights agree bit for
+bit: the training stages (SP, AT, LF at B=4, 2 steps each, ``--tboard``)
+through ``python -m gaze_tpu_torch.cli`` in a subprocess, its TensorBoard
+events read back against its logged lines; then in process ``--eval``
+(equal to ``rollout_eval_arrays`` on the restored weights),
+``--extract_late`` (equal to ``make_map_extract_step``'s maps),
+``--export_torch`` (loaded into fresh modules, bit-equal), ``--quant_sp
+--quant_save`` with the turbo flags, ``--infer`` of an MJPEG AVI at
+720x960 from that bundle (every K1/K2/K3 call held to its plain version,
+launches exact per tick by the counters and by the profiler, the track
+bit-equal to a ``StreamServer`` driven directly on the same PIL-resized
+frames), ``--infer_batch`` over two AVIs and a PNG directory (each track
+bit-equal to a direct server on the same ``decode_batch`` frames),
+``--extract_flow`` on one video (files byte-equal to a direct
+``extract_flow_images``), no temporary directory left by any call, and
+``utils.profiling.device_time`` of K1 within 25% of the profiler's device
+time.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after, and must have launched each of its kernels as often as its
@@ -245,7 +264,7 @@ STAGE_B, STAGE_STEPS, STAGE_ROLL_T = 4, 2, 9
 # the rest), the last has no gaze txt; one more video (DATA_AVI) goes
 # through an MJPEG AVI and extract_dataset. Decoded frames must lie
 # within DATA_PSNR_MIN dB of their sources (a sanity check of the codec).
-DATA_V, DATA_T, DATA_HW, DATA_FIXSAC, DATA_QUALITY = 8, 33, (720, 960), 4, 95
+DATA_V, DATA_T, DATA_HW, DATA_FIXSAC, DATA_QUALITY = 8, 25, (720, 960), 4, 95
 DATA_SUBJECTS, DATA_AVI, DATA_UNTRACKED = ("S1", "S2", "S3", "S4"), "S5_Avi", (5, 12, 20)
 DATA_PSNR_MIN = 30.0
 # extract: the dense_flow preset at the native grid, windows of 32 pairs.
@@ -256,6 +275,19 @@ VIDEO_GROUP, VIDEO_CHUNKS, VIDEO_CPU_FRAMES = 8, (8, 16), 5
 # data_stages: the trainer on the tree at B=4, 1 epoch, the last subject
 # held out.
 DATA_STAGE_B = 4
+# The command line: the training stages at B=4 in a subprocess, then the
+# consumers in process; the eval's rollout chunks are rollout_eval_arrays'
+# default 32 frames. --infer and --infer_batch serve from a PTQ bundle
+# made with the turbo flags (bf16, half-grid flow, 3 warps x 5 iterations,
+# the bf16 stem at the 99.9th percentile): --infer a CLI_INFER_T-frame
+# MJPEG AVI at the native 720x960, --infer_batch two AVIs and a PNG frame
+# directory at 480x640 of CLI_BATCH_T frames. device_time of K1 at
+# CLI_K1_SHAPE must lie within CLI_DEVICE_TIME_TOL of the profiler's.
+CLI_B, CLI_CHUNK, CLI_FPS, CLI_INFER_T = 4, 32, 24, 24
+CLI_BATCH_T, CLI_PNG_HW = (16, 10, 12), (480, 640)
+CLI_TURBO = ["--bf16", "--flow_scale", "0.5", "--tvl1_warps", "3", "--tvl1_iters", "5",
+             "--quant_stem", "bf16", "--quant_percentile", "99.9"]
+CLI_K1_SHAPE, CLI_DEVICE_TIME_TOL = (8, 480, 640), 0.25
 # The tail phase: the turbo clip with the int8 fuse/decoder tail. Its
 # layers at B=8: (name, output grid, kernel size); the up blocks' grids are
 # the polyphase convs' (N + 1 before the depth-to-space). The tail on the
@@ -2927,6 +2959,408 @@ def dist_rollout_phase(torch, cuda, turbo, rollout, mesh):
     return launches
 
 
+# ------------------------------------------------------------ command line ----
+class CheckedInt8:
+    """While active, every K3 call of the int8 streams also runs its plain
+    version (and the 2x2 max-pool where fused) on the same codes, and
+    records whether the two agree bit for bit."""
+
+    def __init__(self, torch):
+        from gaze_tpu_torch.models import quant
+
+        self.torch, self.quant, self.orig = torch, quant, quant.conv3x3_int8
+        self.calls, self.equal = 0, True
+
+    def __enter__(self):
+        from gaze_tpu_torch.ops.conv_int8 import conv3x3_int8_plain, maxpool2x2_int8
+
+        def checked(x, tap, pool=False):
+            got = self.orig(x, tap, pool=pool)
+            ref = conv3x3_int8_plain(x, tap)
+            if pool:
+                ref = maxpool2x2_int8(ref)
+            self.calls += 1
+            self.equal &= got.dtype == ref.dtype and bool(self.torch.equal(got, ref))
+            return got
+
+        self.quant.conv3x3_int8 = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.quant.conv3x3_int8 = self.orig
+        return False
+
+
+def cli_main(argv, tmp: str):
+    """``gaze_tpu_torch.cli.main(argv)`` on the card, its temporary
+    directories under ``tmp``: (wall seconds, printed dicts, stderr)."""
+    import ast
+    import contextlib
+
+    from gaze_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    before = tempfile.tempdir
+    tempfile.tempdir = tmp
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli.main(argv)
+        secs = time.perf_counter() - t0
+    finally:
+        tempfile.tempdir = before
+    if os.listdir(tmp):   # --infer's gaze_infer_frames_*, --infer_batch's gaze_batch_*
+        fail(f"cli {argv[:2]}: temporary directories left: {os.listdir(tmp)}")
+    printed = [ast.literal_eval(x) for x in out.getvalue().splitlines() if x.startswith("{'")]
+    return secs, printed, err.getvalue()
+
+
+def restored_pipeline(torch, argv):
+    """The command line's config and pipeline for ``argv``, its three
+    modules restored from their checkpoints (the best, else the latest)."""
+    from gaze_tpu_torch.cli.args import build_argparser, make_config
+    from gaze_tpu_torch.core.checkpoint import restore_best_or_latest
+    from gaze_tpu_torch.models.pipeline import GazePipeline
+    from gaze_tpu_torch.train.at import create_at_state
+    from gaze_tpu_torch.train.lf import create_lf_state
+    from gaze_tpu_torch.train.sp import create_sp_state
+
+    args = build_argparser().parse_args(argv)
+    cfg = make_config(args)
+    pipe = GazePipeline(cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32)
+    for stage, create in (("sp", create_sp_state), ("at", create_at_state),
+                          ("lf", create_lf_state)):
+        _, ok = restore_best_or_latest(os.path.join(args.save_dir, stage), create(pipe),
+                                       report=True)
+        if not ok:
+            fail(f"cli: no {stage} checkpoint under {args.save_dir}")
+    return args, cfg, pipe
+
+
+def write_avi(path: str, frames) -> None:
+    from PIL import Image
+
+    from gaze_tpu_torch.data.video import write_mjpeg_avi
+
+    jpegs = []
+    for f in frames:
+        buf = io.BytesIO()
+        Image.fromarray(f).save(buf, format="JPEG", quality=DATA_QUALITY)
+        jpegs.append(buf.getvalue())
+    write_mjpeg_avi(path, jpegs, frames.shape[2], frames.shape[1], fps=CLI_FPS)
+
+
+def pil_frame(path: str, hw) -> np.ndarray:
+    """A frame resized on the host with PIL's bilinear filter, as
+    ``--infer`` resizes it."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.array(im.convert("RGB").resize((hw[1], hw[0]), Image.BILINEAR), np.uint8)
+
+
+def batch_frame(path: str, hw) -> np.ndarray:
+    """A frame decoded at the model grid by ``decode_batch``, as
+    ``--infer_batch`` decodes it."""
+    from gaze_tpu_torch.data.native_io import decode_batch
+
+    return decode_batch([path], target_hw=hw)[0]
+
+
+def direct_tracks(torch, cfg, pipe, qsp, videos, out_dir, load):
+    """A ``StreamServer`` over ``videos`` ({stem: frame paths}) driven
+    with submit() as a user would, each frame loaded on its own by
+    ``load(path, hw)`` at the model grid, an ended video re-fed its last
+    frame; each track written in the command line's format."""
+    from PIL import Image
+
+    from gaze_tpu_torch.cli.infer import _write_track
+    from gaze_tpu_torch.serve import StreamServer
+
+    th, tw = cfg.image.height, cfg.image.width
+    stems = sorted(videos)
+    srv = StreamServer(cfg, pipe.state_dicts(), len(stems), dtype=pipe.dtype, quant_sp=qsp)
+    for v in range(len(stems)):
+        srv.attach(v)
+    lens = [len(videos[s]) for s in stems]
+    got = [[] for _ in stems]
+
+    def take(r):
+        if r is not None:
+            for v in range(len(stems)):
+                if len(got[v]) < lens[v]:
+                    got[v].append(tuple(float(x) for x in r["gaze"][v]))
+
+    for t in range(max(lens)):
+        batch = np.stack([load(videos[s][min(t, n - 1)], (th, tw))
+                          for s, n in zip(stems, lens)])
+        take(srv.submit(batch))
+    take(srv.flush())
+    for v, s in enumerate(stems):
+        with Image.open(videos[s][0]) as im:
+            _write_track(os.path.join(out_dir, s + ".txt"), got[v], im.size, (tw, th))
+
+
+def cli_phase(torch, dev, cuda, root: str, names, rng):
+    """The command line (``gaze_tpu_torch.cli``) at full width on the card:
+    the training stages in a subprocess, then every consumer in process,
+    each held to the same work done directly. Returns the launch counts
+    of each path."""
+    from PIL import Image
+
+    from gaze_tpu_torch.cli.evaluate import synthetic_eval_corpus
+    from gaze_tpu_torch.cli.infer import _list_frames
+    from gaze_tpu_torch.core.config import dense_flow_tvl1_config
+    from gaze_tpu_torch.data.flow_extract import FlowExtractSpec, extract_flow_images
+    from gaze_tpu_torch.data.video import extract_frames
+    from gaze_tpu_torch.evaluation.rollout import rollout_eval_arrays
+    from gaze_tpu_torch.models.quant_io import load_quant_sp
+    from gaze_tpu_torch.models.weights import load_state
+    from gaze_tpu_torch.models.at import LSTMNet
+    from gaze_tpu_torch.models.lf import LateFusion
+    from gaze_tpu_torch.models.sp import SPNet
+    from gaze_tpu_torch.ops.cuda.warp import warp3
+    from gaze_tpu_torch.ops.image import central_gradient
+    from gaze_tpu_torch.ops.tvl1 import _pyramid_shapes
+    from gaze_tpu_torch.train.lf import make_map_extract_step
+    from gaze_tpu_torch.train.stages import _batches
+    from gaze_tpu_torch.cli.args import stage_options
+    from gaze_tpu_torch.utils.profiling import device_time
+    from gaze_tpu_torch.utils.tboard import read_scalars
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    tmp = os.path.join(work, "tmp")
+    os.makedirs(tmp)
+    save, tb = os.path.join(work, "save"), os.path.join(work, "tb")
+    base = ["--synthetic", "--batch_size", str(CLI_B), "--save_dir", save]
+    secs, launches = {}, {}
+    # each invocation builds its own pipeline: with cuDNN free to pick its
+    # atomic transposed-conv algorithm, two pipelines' heatmaps differ in
+    # the last ulp (one AUC tie moved in 124 frames), so the phase holds
+    # the command line to the direct calls with cuDNN deterministic
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # 1. the training stages through the console entry point
+        argv = ["--train_sp", "--train_lstm", "--train_late", "--synthetic", "--batch_size",
+                str(CLI_B), "--steps_per_epoch", "2", "--seq_len", "4", "--tboard", tb,
+                "--save_dir", save, "--log_every", "1"]
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "gaze_tpu_torch.cli"] + argv,
+                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                           text=True, timeout=600)
+        secs["train"] = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"cli: python -m gaze_tpu_torch.cli {' '.join(argv[:3])} exited "
+                 f"{r.returncode}: {r.stderr[-3000:]}")
+        logged = [json.loads(x) for x in r.stdout.splitlines() if x.startswith('{"stage"')]
+        if {x["stage"] for x in logged} != {"sp", "at", "lf"}:
+            fail(f"cli: the training run logged {sorted({x['stage'] for x in logged})}")
+        # its TensorBoard mirror: every logged scalar, float32, read back
+        want = {(x["stage"], x["step"], k, float(np.float32(v))) for x in logged
+                for k, v in x.items() if k not in ("stage", "step", "steps_per_sec")}
+        events = set()
+        for stage in ("sp", "at", "lf"):
+            for f in os.listdir(os.path.join(tb, stage)):
+                events |= {(stage, s, k, v) for s, k, v in
+                           read_scalars(os.path.join(tb, stage, f))}
+        if events != want:
+            fail(f"cli: tboard events {len(events)} differ from the {len(want)} logged "
+                 f"scalars: {sorted(events ^ want)[:6]}")
+
+        # 2. --eval: the restored weights, the sums of a direct rollout
+        args, cfg, pipe = restored_pipeline(torch, ["--eval"] + base)
+        cuda.reset_launch_counts()
+        secs["eval"], printed, err = cli_main(["--eval"] + base, tmp)
+        launches["cli_eval"] = launch_counts(cuda)
+        if "random init" in err:
+            fail(f"cli: --eval ran from random init: {err}")
+        frames, gaze, fixsac = synthetic_eval_corpus(args, cfg)
+        aae, auc, cnt = rollout_eval_arrays(pipe, frames, gaze, fixsac)
+        got = next(x for x in printed if "AAE_deg" in x)
+        direct = {"AAE_deg": float(aae.sum() / cnt.sum()), "AUC": float(auc.sum() / cnt.sum())}
+        steps = -(-(frames.shape[1] - 1) // CLI_CHUNK) * CLI_CHUNK
+        if got != direct or launches["cli_eval"] != flow_launches(cfg, steps):
+            fail(f"cli: --eval printed {got}, the direct rollout {direct}; launches "
+                 f"{launches['cli_eval']}, expected {flow_launches(cfg, steps)}")
+
+        # 3. --extract_late: the maps of make_map_extract_step
+        xl = ["--extract_late", "--steps_per_epoch", "2"] + base
+        cuda.reset_launch_counts()
+        secs["extract_late"], _, _ = cli_main(xl, tmp)
+        launches["cli_extract_late"] = launch_counts(cuda)
+        step = make_map_extract_step(pipe, {"sp": pipe.sp.state_dict(),
+                                            "at": pipe.lstm.state_dict()})
+        opts = stage_options(args)
+        want = {"saliency": [], "attention": []}
+        for b in _batches(dataclasses.replace(opts, steps_per_epoch=2), cfg, train=False):
+            m = step(b)
+            for k in want:
+                want[k].append(m[k].cpu().numpy().astype(np.float16))
+        with np.load(os.path.join(save, "maps", "synthetic.npz")) as z:
+            maps_equal = all(np.array_equal(z[k], np.concatenate(v)) for k, v in want.items())
+        if not maps_equal:
+            fail("cli: --extract_late maps differ from make_map_extract_step's")
+
+        # 4. --export_torch: the bundle into fresh modules, bit-equal
+        bundle_path = os.path.join(work, "bundle.pt")
+        secs["export_torch"], _, _ = cli_main(["--export_torch", bundle_path] + base, tmp)
+        bundle = torch.load(bundle_path, weights_only=True)
+        for name, module in (("sp", SPNet(cfg.sp)), ("at", LSTMNet(cfg.at)),
+                             ("lf", LateFusion(cfg.lf))):
+            load_state(module, bundle[name])
+            ref = pipe.modules()[name].state_dict()
+            if not all(torch.equal(t, ref[k].cpu()) for k, t in module.state_dict().items()
+                       if not k.endswith("num_batches_tracked")):
+                fail(f"cli: the exported {name} differs from the pipeline's")
+        del pipe, bundle
+        torch.cuda.empty_cache()
+
+        # 5. --quant_sp --quant_save: the turbo serving flags, PTQ
+        qpath = os.path.join(work, "turbo_int8.npz")
+        qflags = base + CLI_TURBO
+        cuda.reset_launch_counts()
+        secs["quant_save"], _, _ = cli_main(["--quant_sp", "--quant_calib_batches", "2",
+                                             "--quant_save", qpath] + qflags, tmp)
+        launches["cli_quant_calibrate"] = launch_counts(cuda)
+        qsp = load_quant_sp(qpath)
+
+        # 6. --infer on an MJPEG AVI at 720x960, from the saved bundle
+        vids = os.path.join(work, "videos")
+        os.makedirs(os.path.join(vids, "batch", "c"))
+        write_avi(os.path.join(vids, "clip.avi"), gtea_video(rng, CLI_INFER_T, DATA_HW))
+        lens = dict(zip("abc", CLI_BATCH_T))
+        for s in "ab":
+            write_avi(os.path.join(vids, "batch", s + ".avi"), gtea_video(rng, lens[s], DATA_HW))
+        for t, f in enumerate(gtea_video(rng, lens["c"], CLI_PNG_HW)):
+            Image.fromarray(f).save(os.path.join(vids, "batch", "c", f"{t:06d}.png"))
+        _, tcfg, tpipe = restored_pipeline(torch, qflags)
+        per_tick = dict(flow_launches(tcfg, 1), conv3x3_int8=2 * (
+            len(qsp.spatial.kernels) - (qsp.spatial.stem_kernel is not None)))
+        infer = ["--quant_load", qpath, "--infer", os.path.join(vids, "clip.avi"),
+                 "--infer_out", os.path.join(work, "track.txt"),
+                 "--infer_heatmaps", os.path.join(work, "hm"),
+                 "--infer_overlay", os.path.join(work, "overlay.avi")] + qflags
+        want_launches = {k: v * CLI_INFER_T for k, v in per_tick.items()}
+        with CheckedKernels(torch) as k12, CheckedInt8(torch) as k3:
+            cuda.reset_launch_counts()
+            cli_main(infer, tmp)
+            checked = launch_counts(cuda)
+        k12.check("cli --infer", {k: want_launches[k] for k in ("warp3", "tvl1_pd")})
+        if not k3.equal or k3.calls != want_launches["conv3x3_int8"] or checked != want_launches:
+            fail(f"cli --infer: K3 bit-equal {k3.equal} over {k3.calls} calls, launches "
+                 f"{checked}, expected {want_launches}")
+        cuda.reset_launch_counts()
+        secs["infer"], printed, _ = cli_main(infer, tmp)
+        launches["cli_infer"] = launch_counts(cuda)
+        wall, prof = device_profile(torch, lambda: cli_main(infer, tmp))
+        by_profiler = {k: device_us(prof, n)[1] for k, n in (
+            ("warp3", "warp3_kernel"), ("tvl1_pd", "pd_iterations_kernel"),
+            ("conv3x3_int8", "conv3x3_int8_kernel"))}
+        if launches["cli_infer"] != want_launches or by_profiler != want_launches:
+            fail(f"cli --infer: launches {launches['cli_infer']}, by the profiler "
+                 f"{by_profiler}, expected {want_launches}")
+        frames_dir = os.path.join(work, "clip_frames")
+        extract_frames(os.path.join(vids, "clip.avi"), frames_dir)
+        direct_tracks(torch, tcfg, tpipe, qsp, {"clip": _list_frames(frames_dir)}, work,
+                      pil_frame)
+        with open(os.path.join(work, "clip.txt"), "rb") as f, \
+                open(os.path.join(work, "track.txt"), "rb") as g:
+            infer_equal = f.read() == g.read()
+        overlay = next(x for x in printed if "overlay_frames" in x)["overlay_frames"]
+        pngs = sorted(os.listdir(os.path.join(work, "hm")))
+        if not infer_equal or overlay != CLI_INFER_T or len(pngs) != -(-CLI_INFER_T // 10):
+            fail(f"cli --infer: track equal to the direct server's: {infer_equal}; overlay "
+                 f"frames {overlay}; heatmap PNGs {pngs}")
+
+        # 7. --infer_batch: two AVIs of different lengths and a PNG directory
+        cuda.reset_launch_counts()
+        secs["infer_batch"], _, _ = cli_main(
+            ["--quant_load", qpath, "--infer_batch", os.path.join(vids, "batch")] + qflags, tmp)
+        launches["cli_infer_batch"] = launch_counts(cuda)
+        videos = {}
+        for s in "ab":
+            d = os.path.join(work, "batch_frames", s)
+            extract_frames(os.path.join(vids, "batch", s + ".avi"), d)
+            videos[s] = _list_frames(d)
+        videos["c"] = _list_frames(os.path.join(vids, "batch", "c"))
+        direct_dir = os.path.join(work, "direct_batch")
+        os.makedirs(direct_dir)
+        direct_tracks(torch, tcfg, tpipe, qsp, videos, direct_dir, batch_frame)
+        batch_equal = {s: open(os.path.join(save, "infer_batch", s + ".txt"), "rb").read()
+                       == open(os.path.join(direct_dir, s + ".txt"), "rb").read() for s in "abc"}
+        want_batch = {k: v * max(CLI_BATCH_T) for k, v in per_tick.items()}
+        if not all(batch_equal.values()) or launches["cli_infer_batch"] != want_batch:
+            fail(f"cli --infer_batch: tracks equal {batch_equal}; launches "
+                 f"{launches['cli_infer_batch']}, expected {want_batch}")
+        del tpipe
+        torch.cuda.empty_cache()
+
+        # 8. --extract_flow on one video of the data tree
+        one = os.path.join(work, "one")
+        shutil.copytree(os.path.join(root, "images", names[0]),
+                        os.path.join(one, "images", names[0]))
+        xf = ["--extract_flow", "--data_root", one, "--tvl1_preset", "dense_flow",
+              "--batch_size", str(EXTRACT_B), "--flow_out", os.path.join(work, "flows_cli")]
+        cuda.reset_launch_counts()
+        secs["extract_flow"], _, _ = cli_main(xf, tmp)
+        launches["cli_extract_flow"] = launch_counts(cuda)
+        t1 = dataclasses.replace(dense_flow_tvl1_config(), flow_scale=1.0)
+        spec = FlowExtractSpec(tvl1=t1, bound=t1.quant_bound, batch_size=EXTRACT_B)
+        extract_flow_images(one, spec, out_root=os.path.join(work, "flows_direct"),
+                            verbose=False)
+        a, b = (os.path.join(work, d, names[0]) for d in ("flows_cli", "flows_direct"))
+        files = sorted(os.listdir(b))
+        flows_equal = sorted(os.listdir(a)) == files and all(
+            open(os.path.join(a, f), "rb").read() == open(os.path.join(b, f), "rb").read()
+            for f in files)
+        levels = len(_pyramid_shapes(*DATA_HW, t1.pyramid_levels, t1.pyramid_factor))
+        want_flow = {"warp3": levels * t1.warps, "tvl1_pd": levels * t1.warps,
+                     "conv3x3_int8": 0}
+        if not flows_equal or len(files) != 2 * (DATA_T - 1) \
+                or launches["cli_extract_flow"] != want_flow:
+            fail(f"cli --extract_flow: {len(files)} files, equal to a direct call: "
+                 f"{flows_equal}; launches {launches['cli_extract_flow']}, expected {want_flow}")
+
+        # 9. device_time of one K1 call against the profiler's device time
+        n, H, W = CLI_K1_SHAPE
+        tex = textures(rng, n, H, W)
+        i1 = torch.from_numpy(tex() * 255.0).to(dev)
+        i1x, i1y = (g.contiguous() for g in central_gradient(i1))
+        u = [torch.from_numpy(rng.uniform(-8, 8, CLI_K1_SHAPE).astype(np.float32)).to(dev)
+             for _ in range(2)]
+        k1_args = (i1, i1x, i1y, *u, torch.from_numpy(tex(0.7, -0.4) * 255.0).to(dev))
+        dt_us = device_time(lambda: warp3(*k1_args), iters=50, repeats=3) * 1e6
+        _, prof_k1 = device_profile(torch, lambda: [warp3(*k1_args) for _ in range(20)])
+        k1_us, k1_n = device_us(prof_k1, "warp3_kernel")
+        k1_ratio = dt_us / (k1_us / k1_n)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(work, ignore_errors=True)
+    if os.path.exists(work):
+        fail(f"cli: {work} was not removed")
+    infer_busy = busy_ms(prof)
+    emit("cli", batch=CLI_B, cudnn_deterministic=True, seconds_per_invocation=secs,
+         infer={"frames": CLI_INFER_T, "native_hw": list(DATA_HW),
+                "frames_per_s": CLI_INFER_T / secs["infer"],
+                "profiled_wall_s": wall, "device_busy_ms": infer_busy,
+                "device_idle_share": 1 - infer_busy / (secs["infer"] * 1e3),
+                "launches_per_tick": per_tick, "track_equal_to_direct_server": infer_equal,
+                "kernels_bit_equal_to_plain": True},
+         infer_batch={"videos": dict(zip("abc", CLI_BATCH_T)),
+                      "stream_frames_per_s": sum(CLI_BATCH_T) / secs["infer_batch"],
+                      "tracks_equal_to_direct_server": batch_equal},
+         eval=got, eval_equal_to_direct_rollout=True, extract_late_maps_equal=maps_equal,
+         extract_flow_files_equal=flows_equal, tboard_scalars=len(events),
+         k1_device_time={"shape": list(CLI_K1_SHAPE), "device_time_us": dt_us,
+                         "profiler_us": k1_us / k1_n, "ratio": k1_ratio,
+                         "tol": CLI_DEVICE_TIME_TOL},
+         launches=launches)
+    if not abs(k1_ratio - 1) <= CLI_DEVICE_TIME_TOL:
+        fail(f"cli: device_time of K1 {dt_us} us against the profiler's {k1_us / k1_n} us")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2946,6 +3380,14 @@ def main() -> None:
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
+    laps, mark = {}, [time.perf_counter(), "build"]
+
+    def lap(name: str) -> None:
+        """Charge the seconds since the last lap to the phase that ran."""
+        now = time.perf_counter()
+        laps[mark[1]] = laps.get(mark[1], 0.0) + now - mark[0]
+        mark[:] = [now, name]
+
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     build_s = cuda.build_all()
@@ -2958,6 +3400,7 @@ def main() -> None:
     summary = {}
 
     # ------------------------------------------------------------- K1
+    lap("K1")
     k1_err = 0.0
     main_shape = (B, SIZE, SIZE)
     for shape in [(B, 224, 224), (B, 112, 112), (B, 56, 56), (B, 28, 28), (2, 48, 200)]:
@@ -3014,6 +3457,7 @@ def main() -> None:
     summary["warp3"]["max_abs_err"] = k1_err
 
     # ------------------------------------------------------------- K2
+    lap("K2")
     cfg = parity_config()
     t1 = cfg.tvl1
     k2_err = 0.0
@@ -3083,6 +3527,7 @@ def main() -> None:
     summary["tvl1_pd"]["max_abs_err"] = k2_err
 
     # ----------------------------------------------------------- tvl1
+    lap("tvl1")
     tex = textures(rng, 2, SIZE, SIZE)
     i0 = torch.from_numpy(tex()).to(dev)
     i1 = torch.from_numpy(tex(*TVL1_SHIFT)).to(dev)
@@ -3112,6 +3557,7 @@ def main() -> None:
         fail(f"tvl1: kernel path differs from the plain path by {d_max} px > {TVL1_BAND}")
 
     # ---------------------------------------------------------- slice
+    lap("slice")
     pipe = GazePipeline(cfg, seed=0)          # device=None: the card
     tex = textures(rng, 3 * B, SIZE, SIZE)
     drift = np.cumsum(rng.uniform(-2, 2, (T + 1, 2)), axis=0)
@@ -3201,40 +3647,53 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- K3
+    lap("K3")
     summary["conv3x3_int8"] = k3_phase(torch, dev, rng)
 
     # ---------------------------------------------------------- turbo
+    lap("turbo")
     turbo = turbo_phase(torch, dev, cuda, frames, fixsac)
     turbo_launches = turbo["launches"]
 
     # ---------------------------------------------------------- serve
+    lap("serve")
     serve = serve_phase(torch, cuda, turbo, frames, fixsac, rng)
     serve_launches = serve["launches"]
 
     # -------------------------------------------------------- rollout
+    lap("rollout")
     rollout = rollout_phase(torch, cuda, turbo)
     rollout_launches = rollout["launches"]
 
     # ----------------------------------------------------------- tail
+    lap("tail")
     tail_launches = tail_phase(torch, dev, cuda, turbo, frames, fixsac)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- training
+    lap("train_sp")
     sp_state, train_launches = train_sp_phase(torch, cuda)
+    lap("qat")
     qat_launches = qat_phase(torch, cuda, sp_state)
     torch.cuda.empty_cache()
+    lap("train_at")
     at_state, at_launches = train_at_phase(torch, cuda, sp_state)
-    training = {"train_sp": train_launches, "qat": qat_launches, "train_at": at_launches,
-                "train_lf": train_lf_phase(torch, cuda, sp_state, at_state),
-                "stages": stages_phase(torch, cuda)}
+    training = {"train_sp": train_launches, "qat": qat_launches, "train_at": at_launches}
+    lap("train_lf")
+    training["train_lf"] = train_lf_phase(torch, cuda, sp_state, at_state)
+    lap("stages")
+    training["stages"] = stages_phase(torch, cuda)
 
     # --------------------------------------------------- distributed
+    lap("dp_train")
     dist_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     try:
         mesh = dist_init_phase(torch, os.path.join(dist_dir, "nccl_rendezvous"))
         training["dp_train"], sp_run = dp_train_phase(torch, cuda, mesh, sp_state, at_state)
+        lap("dp_gloo2")
         training["dp_gloo2"], gloo2_servers = dp_gloo2_phase(torch, sp_run, turbo, serve,
                                                              dist_dir)
+        lap("dist_serve_rollout")
         dist_launches = {"dist_serve": dist_serve_phase(torch, cuda, turbo, serve, mesh),
                          "dist_serve_gloo2": gloo2_servers,
                          "dist_rollout": dist_rollout_phase(torch, cuda, turbo, rollout, mesh)}
@@ -3248,21 +3707,29 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------- data layer
+    lap("dataset")
     data_dir = tempfile.mkdtemp(prefix="chip_smoke_gtea_")
     try:
         names = dataset_phase(torch, cuda, data_dir, rng)
         data_launches = {"dataset": launch_counts(cuda)}
+        lap("extract")
         data_launches["extract"], k2_levels = extract_phase(torch, dev, cuda, data_dir, names)
+        lap("videos")
         data_launches["videos_tvl1"], data_launches["videos_flow_images"] = videos_phase(
             torch, cuda, turbo, data_dir, names)
+        lap("data_stages")
         training["data_stages_off"], training["data_stages_auto"] = data_stages_phase(
             torch, cuda, data_dir)
+        lap("cli")
+        cli_launches = cli_phase(torch, dev, cuda, data_dir, names, rng)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     if os.path.exists(data_dir):
         fail(f"data: {data_dir} was not removed")
 
     # ------------------------------------------------------- kernels
+    lap("kernels_line")
+    emit("timeline", seconds_by_phase=laps, total_s=sum(laps.values()))
     sources = {"warp3": ("gaze_tpu_torch/csrc/warp.cu", "gaze_tpu/ops/pallas/warp.py:194"),
                "tvl1_pd": ("gaze_tpu_torch/csrc/tvl1_pd.cu",
                            "gaze_tpu/ops/pallas/tvl1_pd.py:121"),
@@ -3282,7 +3749,8 @@ def main() -> None:
                                           "rollout": rollout_launches[name],
                                           "tail": tail_launches[name],
                                           **{k: c[name] for k, c in dist_launches.items()},
-                                          **{k: c[name] for k, c in data_launches.items()}},
+                                          **{k: c[name] for k, c in data_launches.items()},
+                                          **{k: c[name] for k, c in cli_launches.items()}},
                      "training_launches": {path: c[name] for path, c in training.items()},
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                      "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],

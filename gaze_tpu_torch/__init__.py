@@ -15,8 +15,10 @@ LF), on one card or data-parallel over several:
                    with nvcc at first use, bound with ctypes);
 - ``models``     — SP, AT, LF modules, the int8 streams and tail, the
                    QAT fake-quant forward, the decoder variants, the
-                   weight bridge, the pipeline;
-- ``evaluation`` — AAE/AUC metrics, losses, the sequential rollout;
+                   weight bridge, the torchvision VGG16 import and the
+                   torch export, the pipeline;
+- ``evaluation`` — AAE/AUC metrics, losses, the sequential rollout,
+                   the golden-file hooks;
 - ``data``       — the GTEA manifest and batches, the video and JPEG
                    host IO, flow-image extraction on the card, the
                    synthetic corpus, I-DT fixation labels, the flip
@@ -27,7 +29,9 @@ LF), on one card or data-parallel over several:
                    the trainer (``train.stages``), data-parallel over a
                    mesh;
 - ``parallel``   — the data mesh: one process per card;
-- ``utils``      — the step logger.
+- ``utils``      — the step logger, the TensorBoard writer, the gaze
+                   overlays, profiling;
+- ``cli``        — the command line, ``python -m gaze_tpu_torch.cli``.
 
 Importing the package builds nothing and touches no device; entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.

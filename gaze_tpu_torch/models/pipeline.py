@@ -28,6 +28,7 @@ polyphase or half-resolution decoder (``decoder_impl``,
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, NamedTuple, Tuple
 
 import torch
@@ -129,6 +130,9 @@ class GazePipeline:
             m.to(self.device).eval()
         self.at_pool = at_pool
         self.decoder_impl = decoder_impl
+        self._set_quant(quant_sp, quant_conv)
+
+    def _set_quant(self, quant_sp: QuantSP | None, quant_conv: str) -> None:
         self.quant_conv = quant_conv
         self.quant_sp = None if quant_sp is None else quant_sp.to(self.device)
         self._taps = None if quant_sp is None else {
@@ -137,6 +141,20 @@ class GazePipeline:
         }
         if quant_sp is not None and quant_sp.tail is not None:
             self._taps["tail"] = tail_taps(self.quant_sp.tail)
+
+    def with_quant(self, quant_sp: QuantSP, quant_conv: str = "xla") -> "GazePipeline":
+        """A pipeline that serves ``quant_sp``'s int8 streams and shares
+        this one's modules (``sp``, ``lstm``, ``lf``), so a module trained
+        in place through this pipeline is the one the int8 pipeline runs.
+        The counterpart of the JAX pipeline's ``dataclasses.replace(
+        pipeline, quant_sp=..., quant_conv=...)``."""
+        if quant_conv not in CONV_IMPLS:
+            raise ValueError(f"unknown quant_conv {quant_conv!r}")
+        if not isinstance(quant_sp, QuantSP):
+            raise TypeError(f"quant_sp must be a models.quant.QuantSP, got {type(quant_sp)}")
+        view = copy.copy(self)
+        view._set_quant(quant_sp, quant_conv)
+        return view
 
     # ------------------------------------------------------- weights ----
     def modules(self) -> Dict[str, torch.nn.Module]:

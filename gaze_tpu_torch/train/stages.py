@@ -28,8 +28,11 @@ subject) train, the held-out subject's validate, and
 ``precomputed_flow`` says whether batches carry the tree's flow images
 ("auto": when every pair has one); an epoch is every training pair
 (``steps_per_epoch`` counts synthetic batches only). Without it they
-read the synthetic corpus. The pretrained-VGG import waits for the CLI
-slice.
+read the synthetic corpus. ``pretrained_vgg`` starts the SP stage's two
+encoder streams from a torchvision VGG16 ``.pth`` (``models/weights_io.py``)
+before a resume, and ``tboard`` mirrors every stage's logged scalars into
+TensorBoard event files under ``<tboard>/<stage>/``. The command line
+(``gaze_tpu_torch.cli``) fills the options from its flags.
 
 Data-parallel training, one process per card (``core.distributed``):
 every rank builds the same pipeline (the same seeds) on its card, makes
@@ -77,6 +80,7 @@ from gaze_tpu_torch.data.synthetic import (
 from gaze_tpu_torch.models.pipeline import GazePipeline
 from gaze_tpu_torch.models.qat import load_act_scales, save_act_scales
 from gaze_tpu_torch.models.weights import StateDict, load_state
+from gaze_tpu_torch.models.weights_io import init_sp_from_torch_vgg16
 from gaze_tpu_torch.parallel.mesh import Mesh, make_mesh
 from gaze_tpu_torch.train.at import (
     build_at_validation_windows,
@@ -136,6 +140,8 @@ class StageOptions:
     precomputed_flow: str = "auto"    # GTEA flow images: "auto", "on" or "off"
     quant_calib_batches: int = 8      # training batches that calibrate QAT's scales
     quant_percentile: Optional[float] = None   # calibrate at this percentile of |x|, not the max
+    tboard: Optional[str] = None      # mirror logged scalars into <tboard>/<stage>/ events
+    pretrained_vgg: Optional[str] = None   # torchvision vgg16 .pth for the SP encoders
 
 
 def data_parallel_mesh(batch_size: int, dp_devices: Optional[int] = None,
@@ -172,13 +178,15 @@ def _gtea_split(opts: StageOptions, cfg: PipelineConfig
     return manifest.split_leave_one_out(opts.test_subject or manifest.subjects()[0])
 
 
-def _synth_spec(opts: StageOptions, cfg: PipelineConfig, seed: int) -> SyntheticSpec:
-    """The synthetic corpus's spec: 4 batches' worth of frames, at least
-    64 (40 per blob for the task-cycle corpus)."""
+def _synth_spec(opts: StageOptions, cfg: PipelineConfig, seed: int,
+                num_frames: Optional[int] = None) -> SyntheticSpec:
+    """The synthetic corpus's spec: ``num_frames``, by default 4 batches'
+    worth of frames, at least 64 (40 per blob for the task-cycle corpus)."""
     k = opts.synthetic_blobs
-    num_frames = max(64, opts.batch_size * 4)
-    if k > 1:
-        num_frames = max(num_frames, 40 * k)
+    if num_frames is None:
+        num_frames = max(64, opts.batch_size * 4)
+        if k > 1:
+            num_frames = max(num_frames, 40 * k)
     return SyntheticSpec(num_frames=num_frames, height=cfg.image.height,
                          width=cfg.image.width, seed=seed, num_blobs=k)
 
@@ -231,7 +239,7 @@ def _run_sp_like_stage(opts: StageOptions, pipeline: GazePipeline, state: TrainS
     the end). Returns the best SP state dict, also left in
     ``pipeline.sp``."""
     cfg = pipeline.config
-    logger = StepLogger(stage, every=opts.log_every)
+    logger = StepLogger(stage, every=opts.log_every, tboard_dir=opts.tboard)
 
     def validate_and_track() -> None:
         val = _val_aae(eval_fn, state, next(iter(_batches(opts, cfg, train=False))))
@@ -255,10 +263,13 @@ def _run_sp_like_stage(opts: StageOptions, pipeline: GazePipeline, state: TrainS
 
 def run_train_sp(opts: StageOptions, pipeline: GazePipeline,
                  mesh: Optional[Mesh] = None) -> StateDict:
-    """SP stage (``_run_sp_like_stage``) from fresh weights, or resumed
-    from ``<save_dir>/sp``'s latest checkpoint; data-parallel over
-    ``mesh``."""
+    """SP stage (``_run_sp_like_stage``) from fresh weights (the encoder
+    streams from ``pretrained_vgg`` when given), or resumed from
+    ``<save_dir>/sp``'s latest checkpoint; data-parallel over ``mesh``."""
     state = create_sp_state(pipeline)
+    if opts.pretrained_vgg:
+        init_sp_from_torch_vgg16(pipeline.sp, opts.pretrained_vgg,
+                                 pipeline.config.sp.flow_channels)
     ckpt_dir = opts.sp_ckpt or os.path.join(opts.save_dir, "sp")
     restore_checkpoint(ckpt_dir, state)
     return _run_sp_like_stage(opts, pipeline, state, ckpt_dir,
@@ -379,7 +390,7 @@ def run_train_lstm(opts: StageOptions, pipeline: GazePipeline,
     state = create_at_state(pipeline)
     ckpt_dir = opts.at_ckpt or os.path.join(opts.save_dir, "at")
     restore_checkpoint(ckpt_dir, state)
-    logger = StepLogger("at", every=opts.log_every)
+    logger = StepLogger("at", every=opts.log_every, tboard_dir=opts.tboard)
 
     def validate_and_track() -> None:
         val_mse = val_metric(state.module)
@@ -448,7 +459,7 @@ def run_train_late(opts: StageOptions, pipeline: GazePipeline, sp_state: StateDi
         step_fn = make_lf_train_step(pipeline, frozen, mesh)
         batches = lambda: _batches(opts, cfg, train=True)  # noqa: E731
     eval_fn = make_lf_eval_step(pipeline, frozen)
-    logger = StepLogger("lf", every=opts.log_every)
+    logger = StepLogger("lf", every=opts.log_every, tboard_dir=opts.tboard)
     for _ in range(opts.epochs):
         for batch in device_prefetch(batches(), pipeline.device, mesh=mesh):
             state, metrics = step_fn(state, batch)

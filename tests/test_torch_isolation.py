@@ -5,7 +5,8 @@
   decoder is built from the port's own ``csrc/gaze_io.cpp``); a fresh
   interpreter that runs a CPU step, the serving surface, the three
   training stages and the GTEA data layer has none of them loaded.
-- Entry points default to CUDA and raise without it.
+- Entry points (the command line's ``main`` among them) default to CUDA
+  and raise without it.
 - On CPU tensors the kernel wrappers take their plain versions and the
   launch counters stay at 0; bad inputs are refused.
 - The port's config copy (training's included) has the JAX
@@ -27,6 +28,7 @@ import torch
 
 from gaze_tpu.core import config as jconfig
 from gaze_tpu_torch.core import config as tconfig
+from gaze_tpu_torch import cli
 from gaze_tpu_torch.data import native_io
 from gaze_tpu_torch.data.flow_extract import FlowExtractSpec, extract_flow_images
 from gaze_tpu_torch.data.prefetch import device_prefetch
@@ -40,6 +42,7 @@ from gaze_tpu_torch.ops.cuda.warp import warp3
 from gaze_tpu_torch.ops.tvl1 import tvl1_flow
 from gaze_tpu_torch.ops.warp import warp3_plain
 from gaze_tpu_torch.serve import StreamServer
+from gaze_tpu_torch.utils.profiling import device_time
 from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -69,7 +72,10 @@ def test_no_module_imports_jax_or_the_jax_package():
             "utils/logging.py", "data/video.py", "data/native_io.py", "data/gtea.py",
             "data/flow_extract.py", "models/quant_tail.py", "models/qat.py", "train/qat.py",
             "ops/int8_gemm.py", "parallel/mesh.py", "parallel/__init__.py",
-            "core/distributed.py"} <= names
+            "core/distributed.py", "cli/__init__.py", "cli/__main__.py", "cli/args.py",
+            "cli/quant.py", "cli/evaluate.py", "cli/extract.py", "cli/infer.py",
+            "utils/tboard.py", "utils/viz.py", "utils/profiling.py", "models/weights_io.py",
+            "models/weights_export.py", "evaluation/goldens.py"} <= names
     bad = {str(p.relative_to(ROOT)): sorted(imported_roots(p) & set(FORBIDDEN))
            for p in sources}
     assert not {k: v for k, v in bad.items() if v}
@@ -87,6 +93,7 @@ def test_fresh_interpreter_runs_a_cpu_step_without_jax():
         import torch
         torch.set_num_threads(2)   # as tests/torch_threads.py caps the test workers
         import gaze_tpu_torch
+        import gaze_tpu_torch.cli   # the command line and every module it drives
         from gaze_tpu_torch.core.config import (
             ATConfig, ImageConfig, LFConfig, PipelineConfig, SPConfig, TVL1Config)
         cfg = PipelineConfig(
@@ -209,6 +216,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         extract_flow_images("/nonexistent", spec)
     assert next(device_prefetch(iter([{"x": np.zeros(1)}]), "cpu"))["x"].device.type == "cpu"
+    # the command line: its stages run on the card unless main is asked not to
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--export_torch", "/nonexistent/b.pt", "--save_dir", "/nonexistent"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device_time(lambda: None)
 
 
 def test_unknown_options_and_flow_img_raise():
