@@ -6,8 +6,9 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from gaze_tpu_torch/csrc with nvcc,
-holds each kernel against its plain PyTorch version on the card (K1 warp,
-against ``grid_sample``'s device time too; K2 primal-dual with its fused
+holds each kernel against its plain PyTorch version on the card (K1 warp
+bit for bit, also at edge shapes, its solver call timed in turns with
+``grid_sample`` and its launch path part by part; K2 primal-dual with its fused
 median at every pyramid shape, 10 and 5 iterations, 0-2 median passes;
 K3 int8 conv at every layer shape of the turbo path, with the fused 2x2
 max-pool where a stage ends, ragged shapes and the int8 stem), checks
@@ -166,7 +167,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 INT8_OPS = 1979e12          # H100 SXM dense int8 tensor-core operations
-K1_FLOPS_PER_PIXEL = 43     # coordinates, weights, 3 x 4 taps, epilogue
+K1_FLOPS_PER_PIXEL = 61     # coordinates, weights, 8 tap gradients, 3 x 4 taps, epilogue
 K2_FLOPS_PER_PIXEL_ITER = 54
 K2_OPS_PER_PIXEL_MEDIAN = 76   # 19 comparators (a min and a max) x u1, u2
 K2_DESIGN = "halo'd temporal tiling: iterations and median in shared memory, one launch"
@@ -389,6 +390,11 @@ def device_us(by_name, part: str):
     """(device µs summed, launches) of the kernels whose name holds ``part``."""
     hits = [v for k, v in by_name.items() if part in k]
     return sum(v[0] for v in hits), sum(v[1] for v in hits)
+
+
+def kernel_count(by_name) -> int:
+    """Device kernels launched: every device event but copies and fills."""
+    return sum(v[1] for k, v in by_name.items() if not k.startswith(("Memcpy", "Memset")))
 
 
 def busy_ms(by_name) -> float:
@@ -654,7 +660,8 @@ def turbo_phase(torch, dev, cuda, frames, fixsac):
          step_device_busy_ms=step_busy_ms, device_idle_share=1 - step_busy_ms / step_wall_ms,
          k3_device_ms_per_step=k3_dev_us / 2e3, k3_launches_per_step=k3_n / 2,
          k2_device_ms_per_step=k2_dev_us / 2e3, k2_launches_per_step=k2_n / 2,
-         launches_per_step=sum(v[1] for v in prof.values()) / 2, top_kernels=top_kernels,
+         launches_per_step=sum(v[1] for v in prof.values()) / 2,
+         device_kernels_per_step=kernel_count(prof) / 2, top_kernels=top_kernels,
          peak_mem_bytes=peak, launches=launches,
          cpu_frames=2, cpu_s=t_cpu, cpu_heatmap_max_diff=hm_diff, cpu_heatmap_tol=CPU_TURBO_TOL,
          cpu_gaze_max_diff=float((gaze_g - gaze_c).abs().max()),
@@ -1113,7 +1120,7 @@ class CheckedKernels:
         from gaze_tpu_torch.ops.warp import warp3_plain
 
         self.torch, self.warp, self.pd = torch, warp, tvl1_pd
-        self.orig = (warp.warp3, tvl1_pd.pd_iterations)
+        self.orig = (warp.warp3_into, tvl1_pd.pd_iterations)
         self.warp3_plain = warp3_plain
         self.calls = {"warp3": 0, "tvl1_pd": 0}
         self.equal = {"warp3": True, "tvl1_pd": True}
@@ -1128,23 +1135,22 @@ class CheckedKernels:
                                                  for g, r in zip(got, ref)))
 
     def __enter__(self):
-        warp3, pd = self.orig
+        warp3_into, pd = self.orig
 
-        def checked_warp3(*args):
-            got = warp3(*args)
-            self._note("warp3", got, self.warp3_plain(*args), args)
-            return got
+        def checked_warp3_into(out, *args):
+            warp3_into(out, *args)
+            self._note("warp3", out, self.warp3_plain(*args), (out, *args))
 
         def checked_pd(*args, median_passes=0, **kw):
             got = pd(*args, median_passes=median_passes, **kw)
             self._note("tvl1_pd", got, k2_plain(args, kw, median_passes), args)
             return got
 
-        self.warp.warp3, self.pd.pd_iterations = checked_warp3, checked_pd
+        self.warp.warp3_into, self.pd.pd_iterations = checked_warp3_into, checked_pd
         return self
 
     def __exit__(self, *exc):
-        self.warp.warp3, self.pd.pd_iterations = self.orig
+        self.warp.warp3_into, self.pd.pd_iterations = self.orig
         return False
 
     def check(self, where, per_call_kernels):
@@ -3120,7 +3126,6 @@ def cli_phase(torch, dev, cuda, root: str, names, rng):
     from gaze_tpu_torch.models.lf import LateFusion
     from gaze_tpu_torch.models.sp import SPNet
     from gaze_tpu_torch.ops.cuda.warp import warp3
-    from gaze_tpu_torch.ops.image import central_gradient
     from gaze_tpu_torch.ops.tvl1 import _pyramid_shapes
     from gaze_tpu_torch.train.lf import make_map_extract_step
     from gaze_tpu_torch.train.stages import _batches
@@ -3326,10 +3331,9 @@ def cli_phase(torch, dev, cuda, root: str, names, rng):
         n, H, W = CLI_K1_SHAPE
         tex = textures(rng, n, H, W)
         i1 = torch.from_numpy(tex() * 255.0).to(dev)
-        i1x, i1y = (g.contiguous() for g in central_gradient(i1))
         u = [torch.from_numpy(rng.uniform(-8, 8, CLI_K1_SHAPE).astype(np.float32)).to(dev)
              for _ in range(2)]
-        k1_args = (i1, i1x, i1y, *u, torch.from_numpy(tex(0.7, -0.4) * 255.0).to(dev))
+        k1_args = (i1, *u, torch.from_numpy(tex(0.7, -0.4) * 255.0).to(dev))
         dt_us = device_time(lambda: warp3(*k1_args), iters=50, repeats=3) * 1e6
         _, prof_k1 = device_profile(torch, lambda: [warp3(*k1_args) for _ in range(20)])
         k1_us, k1_n = device_us(prof_k1, "warp3_kernel")
@@ -3361,6 +3365,166 @@ def cli_phase(torch, dev, cuda, root: str, names, rng):
     return launches
 
 
+def k1_host_parts(torch, args, reps: int = 2000) -> dict:
+    """Host µs per call of each part of K1's launch path, each part run
+    ``reps`` times back to back on the host clock, and of the whole
+    wrappers: ``warp3_into`` (the solver's call, into the level's buffer)
+    and ``warp3`` (which allocates the buffer and returns its planes).
+    Beside them, the choices this path replaced (a ``Stream`` object for
+    the stream, four ``empty_like`` outputs) and ctypes calls of the CUDA
+    runtime's ``cudaGetDevice`` and ``cudaSetDevice`` (which the entry
+    point used to call at every launch).
+    The device runs K1 faster than the host enqueues it, so these are
+    what a caller waits."""
+    import ctypes
+    import glob
+
+    from gaze_tpu_torch.ops.cuda import warp
+
+    i1, u1, u2, i0 = args
+    B, H, W = u1.shape
+    index = torch.cuda.current_device()
+    out = u1.new_empty((4, B, H, W))
+    cargs = (i1.data_ptr(), u1.data_ptr(), u2.data_ptr(), i0.data_ptr(), out.data_ptr(),
+             B, H, W, index, torch._C._cuda_getCurrentRawStream(index))
+    parts = {
+        "checks": lambda: warp.check_fields(args),
+        "allocation": lambda: u1.new_empty((4, B, H, W)),
+        "views": lambda: out.unbind(),
+        "pointers": lambda: (i1.data_ptr(), u1.data_ptr(), u2.data_ptr(), i0.data_ptr(),
+                             out.data_ptr()),
+        "stream": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "ctypes_call_and_launch": lambda: warp.KERNEL.launch(*cargs),
+        "warp3_into": lambda: warp.warp3_into(out, *args),
+        "warp3": lambda: warp.warp3(*args),
+        "replaced_stream_object": lambda: torch.cuda.current_stream(u1.device).cuda_stream,
+        "replaced_four_empty_like": lambda: [torch.empty_like(u1) for _ in range(4)],
+    }
+    libs = glob.glob(os.path.join(os.path.dirname(torch.__file__), "..", "nvidia",
+                                  "cuda_runtime", "lib", "libcudart.so*"))
+    if libs:
+        rt = ctypes.CDLL(libs[0])
+        rt.cudaGetDevice.argtypes, rt.cudaSetDevice.argtypes = [ctypes.c_void_p], [ctypes.c_int]
+        current = ctypes.c_int(0)
+        parts["ctypes_cudaGetDevice"] = lambda: rt.cudaGetDevice(ctypes.addressof(current))
+        parts["ctypes_cudaSetDevice"] = lambda: rt.cudaSetDevice(index)
+    us = {}
+    for name, fn in parts.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    us["sum_of_parts_into"] = sum(us[k] for k in ("checks", "pointers", "stream",
+                                                  "ctypes_call_and_launch"))
+    return us
+
+
+def k1_phase(torch, dev, rng) -> dict:
+    """K1 at the solver's shapes and at edge shapes: bit-equal to its plain
+    version; the solver's call (``warp3_into`` the level's buffer) by CUDA
+    events in turns with ``grid_sample`` (the yardstick: one PyTorch call
+    warping the three fields, the gradients precomputed), the allocating
+    ``warp3`` beside them, both device times from the profiler, the
+    bound; at the main shape the host cost of each part of the launch
+    path, and a call under a side stream (the wrapper must launch on the
+    caller's current stream)."""
+    import torch.nn.functional as F
+
+    from gaze_tpu_torch.ops.cuda.warp import warp3, warp3_into
+    from gaze_tpu_torch.ops.image import central_gradient
+    from gaze_tpu_torch.ops.warp import warp3_plain
+
+    k1_err, summary = 0.0, None
+    edge_rng = np.random.default_rng(1)   # the edge shapes leave the phases' draws as they were
+    for shape in [(B, 224, 224), (B, 112, 112), (B, 56, 56), (B, 28, 28), (2, 48, 200),
+                  (2, 2, 37), (2, 37, 3)]:
+        n, H, W = shape
+        if H < 4 or W < 4:
+            rng = edge_rng
+        tex = textures(rng, n, H, W)
+        i1 = torch.from_numpy(tex() * 255.0).to(dev)
+        i0 = torch.from_numpy(tex(0.7, -0.4) * 255.0).to(dev)
+        yy, xx = np.mgrid[0:H, 0:W]
+        # displacements to +-40 px, past the TPU kernel's +-16 clamp
+        u1 = 39.0 * np.sin(xx / 23.0 + rng.uniform(0, 3)) + rng.uniform(-1, 1, shape)
+        u2 = 39.0 * np.cos(yy / 19.0 + rng.uniform(0, 3)) + rng.uniform(-1, 1, shape)
+        u1 = torch.from_numpy(u1.astype(np.float32)).to(dev)
+        u2 = torch.from_numpy(u2.astype(np.float32)).to(dev)
+        args = (i1, u1, u2, i0)
+        got = warp3(*args)
+        ref = warp3_plain(*args)
+        torch.cuda.synchronize()
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        rel = max(float(((g - r).abs() / r.abs().clamp(min=1.0)).max()) for g, r in zip(got, ref))
+        equal = all(torch.equal(g, r) for g, r in zip(got, ref))
+        if not equal:
+            fail(f"K1 warp3 {shape}: not bit-equal to its plain version: max abs {err}, "
+                 f"relative {rel} (tol {K1_TOL})")
+        k1_err = max(k1_err, err)
+        nbytes = 8 * 4 * n * H * W
+        bound = max(nbytes / HBM_BYTES_PER_S, K1_FLOPS_PER_PIXEL * n * H * W / F32_FLOPS) * 1e3
+        if H < 4 or W < 4:   # edge shapes: equality only
+            emit("K1", shape=list(shape), max_abs_err=err, bitwise_equal=equal)
+            continue
+        # library yardstick: grid_sample of the 3 fields (no epilogue)
+        stack = torch.stack([i1, *central_gradient(i1)], dim=1)
+        gx = torch.arange(W, device=dev).view(1, 1, W) + u1
+        gy = torch.arange(H, device=dev).view(1, H, 1) + u2
+        grid = torch.stack([2 * gx / (W - 1) - 1, 2 * gy / (H - 1) - 1], dim=-1)
+
+        def sample():
+            return F.grid_sample(stack, grid, mode="bilinear", padding_mode="border",
+                                 align_corners=True)
+
+        reps = 200 if H >= 112 else 500
+        # the solver's call (into the level's buffer) in turns with the
+        # library: kernel, library, library, kernel
+        buf = u1.new_empty((4, n, H, W))
+        ms_a = cuda_ms(torch, lambda: warp3_into(buf, *args), reps)
+        lib_a = cuda_ms(torch, sample, reps)
+        lib_b = cuda_ms(torch, sample, reps)
+        ms_b = cuda_ms(torch, lambda: warp3_into(buf, *args), reps)
+        ms, lib = (ms_a + ms_b) / 2, (lib_a + lib_b) / 2
+        alloc_ms = cuda_ms(torch, lambda: warp3(*args), reps)
+        plain = cuda_ms(torch, lambda: warp3_plain(*args), 50)
+        _, prof = device_profile(torch, lambda: [warp3_into(buf, *args) for _ in range(20)])
+        dev_us, dev_n = device_us(prof, "warp3_kernel")
+        # grid_sample's device time, to hold against K1's device time
+        _, prof = device_profile(torch, lambda: [sample() for _ in range(20)])
+        lib_us, lib_n = device_us(prof, "grid_sampler")
+        row = dict(shape=list(shape), max_abs_err=err, bitwise_equal=equal, kernel_ms=ms,
+                   kernel_ms_turns=[ms_a, ms_b], library_ms=lib, library_ms_turns=[lib_a, lib_b],
+                   kernel_at_most_library_by_events=ms <= lib,
+                   kernel_allocating_ms=alloc_ms,
+                   kernel_device_us=dev_us / dev_n if dev_n else None,
+                   library_device_us=lib_us / lib_n if lib_n else None,
+                   plain_ms=plain, bound_us=bound * 1e3, bytes=nbytes)
+        if shape == (B, SIZE, SIZE):
+            row["host_us_per_call"] = k1_host_parts(torch, args)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                raw = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+                on_side = warp3(*args)
+            side.synchronize()
+            row["raw_stream_follows_current"] = raw == side.cuda_stream
+            if raw != side.cuda_stream or not all(
+                    torch.equal(g, r) for g, r in zip(on_side, ref)):
+                fail("K1: a call under a side stream did not launch there or differs")
+            summary = dict(ms=ms, allocating_ms=alloc_ms, plain_ms=plain, library_ms=lib,
+                           bound_ms=bound, bound_by="bytes",
+                           device_ms=dev_us / dev_n / 1e3 if dev_n else None,
+                           library_device_ms=lib_us / lib_n / 1e3 if lib_n else None,
+                           host_us_per_call=row["host_us_per_call"])
+        emit("K1", **row)
+    summary["max_abs_err"] = k1_err
+    return summary
+
+
 def main() -> None:
     import torch
 
@@ -3371,13 +3535,10 @@ def main() -> None:
         from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
         from gaze_tpu_torch.ops import cuda
         from gaze_tpu_torch.ops.cuda.tvl1_pd import pd_iterations
-        from gaze_tpu_torch.ops.cuda.warp import warp3
         from gaze_tpu_torch.ops.image import central_gradient
         from gaze_tpu_torch.ops.tvl1 import _pyramid_shapes, tvl1_flow
-        from gaze_tpu_torch.ops.warp import warp3_plain
     except ImportError as e:
         fail(f"cannot import gaze_tpu_torch ({e}); run from the repository root")
-    import torch.nn.functional as F
 
     dev = torch.device("cuda")
     laps, mark = {}, [time.perf_counter(), "build"]
@@ -3401,60 +3562,7 @@ def main() -> None:
 
     # ------------------------------------------------------------- K1
     lap("K1")
-    k1_err = 0.0
-    main_shape = (B, SIZE, SIZE)
-    for shape in [(B, 224, 224), (B, 112, 112), (B, 56, 56), (B, 28, 28), (2, 48, 200)]:
-        n, H, W = shape
-        tex = textures(rng, n, H, W)
-        i1 = torch.from_numpy(tex() * 255.0).to(dev)
-        i0 = torch.from_numpy(tex(0.7, -0.4) * 255.0).to(dev)
-        i1x, i1y = (g.contiguous() for g in central_gradient(i1))
-        yy, xx = np.mgrid[0:H, 0:W]
-        # displacements to +-40 px, past the TPU kernel's +-16 clamp
-        u1 = 39.0 * np.sin(xx / 23.0 + rng.uniform(0, 3)) + rng.uniform(-1, 1, shape)
-        u2 = 39.0 * np.cos(yy / 19.0 + rng.uniform(0, 3)) + rng.uniform(-1, 1, shape)
-        u1 = torch.from_numpy(u1.astype(np.float32)).to(dev)
-        u2 = torch.from_numpy(u2.astype(np.float32)).to(dev)
-        args = (i1, i1x, i1y, u1, u2, i0)
-        got = warp3(*args)
-        ref = warp3_plain(*args)
-        torch.cuda.synchronize()
-        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        rel = max(float(((g - r).abs() / r.abs().clamp(min=1.0)).max()) for g, r in zip(got, ref))
-        if not rel <= K1_TOL:
-            fail(f"K1 warp3 {shape}: relative error {rel} > {K1_TOL}")
-        k1_err = max(k1_err, err)
-        # library yardstick: grid_sample of the 3 fields (no epilogue)
-        stack = torch.stack([i1, i1x, i1y], dim=1)
-        gx = torch.arange(W, device=dev).view(1, 1, W) + u1
-        gy = torch.arange(H, device=dev).view(1, H, 1) + u2
-        grid = torch.stack([2 * gx / (W - 1) - 1, 2 * gy / (H - 1) - 1], dim=-1)
-        reps = 200 if H >= 112 else 500
-        ms = cuda_ms(torch, lambda: warp3(*args), reps)
-        plain = cuda_ms(torch, lambda: warp3_plain(*args), 50)
-        def sample():
-            return F.grid_sample(stack, grid, mode="bilinear", padding_mode="border",
-                                 align_corners=True)
-
-        lib = cuda_ms(torch, sample, reps)
-        _, prof = device_profile(torch, lambda: [warp3(*args) for _ in range(20)])
-        dev_us, dev_n = device_us(prof, "warp3_kernel")
-        # grid_sample's device time, to hold against K1's device time: its
-        # event time, like K1's, includes the host's launch cost
-        _, prof = device_profile(torch, lambda: [sample() for _ in range(20)])
-        lib_us, lib_n = device_us(prof, "grid_sampler")
-        nbytes = 10 * 4 * n * H * W
-        bound = max(nbytes / HBM_BYTES_PER_S, K1_FLOPS_PER_PIXEL * n * H * W / F32_FLOPS) * 1e3
-        emit("K1", shape=list(shape), max_abs_err=err, max_rel_err=rel, tol=K1_TOL,
-             kernel_ms=ms, kernel_device_us=dev_us / dev_n if dev_n else None,
-             plain_ms=plain, library_ms=lib,
-             library_device_us=lib_us / lib_n if lib_n else None, bound_us=bound * 1e3)
-        if shape == main_shape:
-            summary["warp3"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                                    bound_by="bytes",
-                                    device_ms=dev_us / dev_n / 1e3 if dev_n else None,
-                                    library_device_ms=lib_us / lib_n / 1e3 if lib_n else None)
-    summary["warp3"]["max_abs_err"] = k1_err
+    summary["warp3"] = k1_phase(torch, dev, rng)
 
     # ------------------------------------------------------------- K2
     lap("K2")
@@ -3517,7 +3625,7 @@ def main() -> None:
                      bound_us=bound * 1e3)
                 if per_call != 1:
                     fail(f"K2 {shape}: {per_call} kernel launches for one call, expected 1")
-                if shape == main_shape and iters == t1.iters and passes == 1:
+                if shape == (B, SIZE, SIZE) and iters == t1.iters and passes == 1:
                     summary["tvl1_pd"] = dict(
                         ms=ms, device_ms=dev_us / dev_n / 1e3 if dev_n else None,
                         plain_ms=plain, library_ms=None,
@@ -3633,6 +3741,7 @@ def main() -> None:
          step_device_busy_ms=step_busy_ms, device_idle_share=1 - step_busy_ms / step_wall_ms,
          k2_device_ms_per_step=k2_dev_us / 2e3, k2_launches_per_step=k2_n / 2,
          launches_per_step=sum(v[1] for v in prof.values()) / 2,
+         device_kernels_per_step=kernel_count(prof) / 2,
          top_kernels=top_kernels, peak_mem_bytes=peak, launches=launches,
          cpu_frames=2, cpu_s=t_cpu, cpu_heatmap_max_diff=hm_diff,
          cpu_heatmap_tol=CPU_HEATMAP_TOL, cpu_gaze_max_diff=float((gaze_g - gaze_c).abs().max()),
@@ -3735,7 +3844,7 @@ def main() -> None:
                            "gaze_tpu/ops/pallas/tvl1_pd.py:121"),
                "conv3x3_int8": ("gaze_tpu_torch/csrc/conv_int8.cu",
                                 "gaze_tpu/ops/pallas/conv_int8.py:171")}
-    units = {"warp3": "one call at B=8x224^2",
+    units = {"warp3": "one call at B=8x224^2, into the level's buffer as the solver calls it",
              "tvl1_pd": "one call at B=8x224^2: 10 iterations and one median pass",
              "conv3x3_int8": "one turbo step: its 24 layer launches at B=8, 224^2"}
     rows = []
@@ -3758,6 +3867,9 @@ def main() -> None:
                      "device_ms": s["device_ms"]})
         if name in ("warp3", "conv3x3_int8"):
             rows[-1]["library_device_ms"] = s["library_device_ms"]
+        if name == "warp3":
+            rows[-1]["allocating_ms"] = s["allocating_ms"]
+            rows[-1]["host_us_per_call"] = s["host_us_per_call"]
         if name == "tvl1_pd":
             rows[-1]["bitwise_equal"] = s["bitwise_equal"]
             rows[-1]["dense_flow_by_level"] = [

@@ -2,11 +2,12 @@
 Sanchez et al., IPOL 2013) with fixed level/warp/iteration counts.
 
 Counterpart of ``gaze_tpu/ops/tvl1.py``. Per (level, warp) the solver
-warps I1 and its gradients (kernel K1, ``ops/cuda/warp.py``), runs the
-primal-dual iterations and the between-warp median (kernel K2,
-``ops/cuda/tvl1_pd.py``, one launch for both), or their plain versions
-when the config asks for them. CUDA tensors go through the kernels, CPU
-tensors through their plain versions.
+warps I1 and its gradients (kernel K1, ``ops/cuda/warp.py``, which forms
+the gradients from I1 itself), runs the primal-dual iterations and the
+between-warp median (kernel K2, ``ops/cuda/tvl1_pd.py``, one launch for
+both), or their plain versions when the config asks for them; the plain
+warp takes gradients formed once per level. CUDA tensors go through the
+kernels, CPU tensors through their plain versions.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from gaze_tpu_torch.ops.image import (
     pyramid_downscale,
     resize_bilinear,
 )
-from gaze_tpu_torch.ops.warp import warp3_plain
+from gaze_tpu_torch.ops.warp import warp3_gather
 
 
 def _median_passes(cfg: TVL1Config) -> int:
@@ -46,14 +47,6 @@ def _pyramid_shapes(h: int, w: int, levels: int, factor: float) -> List[Tuple[in
     return shapes
 
 
-def _warp3(i1, i1x, i1y, u1, u2, i0, cfg: TVL1Config):
-    """(i1wx, i1wy, grad, rho_c) of one warp: kernel K1 unless the config
-    asks for the plain version."""
-    if cfg.use_pallas_warp:
-        return warp.warp3(i1, i1x, i1y, u1, u2, i0)
-    return warp3_plain(i1, i1x, i1y, u1, u2, i0)
-
-
 def _solve_level(
     i0: torch.Tensor,
     i1: torch.Tensor,
@@ -62,8 +55,14 @@ def _solve_level(
     cfg: TVL1Config,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``cfg.warps`` warps x ``cfg.iters`` primal-dual iterations at one
-    pyramid level; all fields (B, H, W)."""
-    i1x, i1y = central_gradient(i1)
+    pyramid level; all fields (B, H, W). K1 forms I1's gradients
+    itself, writing the warp's fields into one buffer of the level; the
+    plain warp takes the gradients formed once here."""
+    if cfg.use_pallas_warp:
+        buf = u1.new_empty((4, *u1.shape))
+        planes = buf.unbind()
+    else:
+        grads = central_gradient(i1)
     p11 = torch.zeros_like(u1)
     p12 = torch.zeros_like(u1)
     p21 = torch.zeros_like(u1)
@@ -72,7 +71,11 @@ def _solve_level(
     kw = dict(iters=cfg.iters, tau=cfg.tau, lambda_=cfg.lambda_, theta=cfg.theta)
     for _ in range(cfg.warps):
         # The flow is frozen during the inner iterations (warping scheme).
-        i1wx, i1wy, grad, rho_c = _warp3(i1, i1x, i1y, u1, u2, i0, cfg)
+        if cfg.use_pallas_warp:
+            warp.warp3_into(buf, i1, u1, u2, i0)
+            i1wx, i1wy, grad, rho_c = planes
+        else:
+            i1wx, i1wy, grad, rho_c = warp3_gather(i1, *grads, u1, u2, i0)
         args = (u1, u2, p11, p12, p21, p22, i1wx, i1wy, grad, rho_c)
         if cfg.use_pallas_pd:   # K2 applies the median after its last iteration
             u1, u2, p11, p12, p21, p22 = tvl1_pd.pd_iterations(*args, median_passes=passes, **kw)

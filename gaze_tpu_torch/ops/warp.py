@@ -2,10 +2,13 @@
 
 Counterpart of ``gaze_tpu/ops/warp.py``: the exact border-clamped 4-tap
 gather. ``warp3_plain`` is what the CUDA kernel ``csrc/warp.cu``
-computes (the warp of I1 and its two gradients with shared weights, plus
-the TV-L1 per-warp epilogue), written as tensor ops; the kernel's wrapper
-(``ops/cuda/warp.py``) runs it for CPU tensors, and the tests and
-``chip_smoke.py`` hold the kernel against it.
+computes (the central-difference gradients of I1, the warp of I1 and
+those gradients with shared weights, plus the TV-L1 per-warp epilogue),
+written as tensor ops; the kernel's wrapper (``ops/cuda/warp.py``) runs
+it for CPU tensors, and the tests and ``chip_smoke.py`` hold the kernel
+against it. ``warp3_gather`` is its gather and epilogue alone, for a
+caller that forms the gradients once per pyramid level (the solver's
+plain route).
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from gaze_tpu_torch.ops.image import central_gradient
 
 
 def _corners(x: torch.Tensor, y: torch.Tensor, H: int, W: int):
@@ -62,7 +67,7 @@ def warp_backward(img: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor) -> torc
     return bilinear_sample(img, x, y)
 
 
-def warp3_plain(
+def warp3_gather(
     i1: torch.Tensor,
     i1x: torch.Tensor,
     i1y: torch.Tensor,
@@ -86,3 +91,13 @@ def warp3_plain(
     grad = i1wx * i1wx + i1wy * i1wy
     rho_c = i1w - i1wx * u1 - i1wy * u2 - i0
     return i1wx, i1wy, grad, rho_c
+
+
+def warp3_plain(
+    i1: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor, i0: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's plain version: the central differences of I1 with one-sided
+    borders (``ops/image.py:central_gradient``), then
+    :func:`warp3_gather`."""
+    i1x, i1y = central_gradient(i1)
+    return warp3_gather(i1, i1x, i1y, u1, u2, i0)

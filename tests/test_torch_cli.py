@@ -8,8 +8,9 @@ bridge), runs the JAX CLI once, ``python -m gaze_tpu.cli --eval
 --extract_late --infer --infer_batch --export_torch`` at ``--image_size
 32 --batch_size 2`` (full VGG16 widths, the CLI's config; TV-L1 cut to 1
 warp x 2 iterations), in a subprocess held to two cores (so XLA's
-threads leave the other test workers their share), and runs the port's
-``main(..., device="cpu")`` on the same flags. No training stage runs.
+threads leave the other test workers their share), and meanwhile runs the
+port's ``main(..., device="cpu")`` on the same flags. No training stage
+runs.
 
 Tolerances:
 
@@ -178,21 +179,32 @@ def run_cli(main, argv, tmpdir, **kw):
     return out.getvalue(), err.getvalue()
 
 
-def run_jax_cli(argv, tmpdir):
-    """``python -m gaze_tpu.cli`` in a subprocess on JAX_CLI_CORES cores,
-    its temporary directories under ``tmpdir``, the tests' JAX settings
-    (CPU devices, float32 matmuls, the compile cache) in its
-    environment: (stdout, stderr)."""
+def start_jax_cli(argv, tmpdir):
+    """Start ``python -m gaze_tpu.cli`` in a subprocess on JAX_CLI_CORES
+    cores, its temporary directories under ``tmpdir``, the tests' JAX
+    settings (CPU devices, float32 matmuls, the compile cache) in its
+    environment; :func:`finish_jax_cli` waits for it."""
     os.makedirs(tmpdir)
     cores = ",".join(map(str, sorted(os.sched_getaffinity(0))[:JAX_CLI_CORES]))
     env = dict(os.environ, TMPDIR=tmpdir, JAX_DEFAULT_MATMUL_PRECISION="float32",
                JAX_COMPILATION_CACHE_DIR=jax.config.jax_compilation_cache_dir or "",
                JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="0",
                JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES="-1")
-    r = subprocess.run(["taskset", "-c", cores, sys.executable, "-m", "gaze_tpu.cli"] + argv,
-                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
-    assert r.returncode == 0, r.stderr[-3000:]
-    return r.stdout, r.stderr
+    return subprocess.Popen(["taskset", "-c", cores, sys.executable, "-m", "gaze_tpu.cli"] + argv,
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_jax_cli(proc):
+    """(stdout, stderr) of a :func:`start_jax_cli` run that succeeded."""
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-3000:]
+    return out, err
 
 
 @pytest.fixture(scope="module")
@@ -207,31 +219,37 @@ def runs(tmp_path_factory):
 
 
 def _runs(root):
+    """The JAX CLI runs in its subprocess while the port's runs go on in
+    this process, which would otherwise wait for it."""
     avi, batch = write_inputs(root)
     save = {"jax": os.path.join(root, "save_jax"), "port": os.path.join(root, "save_port")}
     result = {"avi": avi, "batch": batch, "root": root,
               "variables": write_checkpoints(save["jax"], save["port"])}
+    argv = {}
     for name in ("jax", "port"):
         d = os.path.join(root, name)
-        argv = COMMON + ["--save_dir", save[name], "--eval", "--extract_late",
-                         "--infer", avi, "--infer_out", os.path.join(d, "track.txt"),
-                         "--infer_heatmaps", os.path.join(d, "hm"), "--infer_heatmap_every", "3",
-                         "--infer_batch", batch, "--export_torch", os.path.join(d, "bundle.pt")]
-        tmp = os.path.join(root, name + "_tmp")
-        if name == "jax":
-            out, err = run_jax_cli(argv, tmp)
-        else:
-            out, err = run_cli(cli.main, argv, tmp, device="cpu")
-        result[name] = dict(dir=d, save=save[name], out=printed(out), err=err,
-                            tmp=sorted(os.listdir(tmp)))
-    bundle = os.path.join(root, "int8.npz")
-    result["quant"] = {"bundle": bundle}
-    for name, flags in (("calibrated", CALIB + ["--quant_save", bundle]),
-                        ("loaded", ["--quant_load", bundle])):
-        out, err = run_cli(cli.main, COMMON + flags + ["--eval", "--save_dir", save["port"]],
-                           os.path.join(root, name + "_tmp"), device="cpu")
-        assert "random init" not in err
-        result["quant"][name] = printed(out)
+        argv[name] = COMMON + ["--save_dir", save[name], "--eval", "--extract_late",
+                               "--infer", avi, "--infer_out", os.path.join(d, "track.txt"),
+                               "--infer_heatmaps", os.path.join(d, "hm"),
+                               "--infer_heatmap_every", "3", "--infer_batch", batch,
+                               "--export_torch", os.path.join(d, "bundle.pt")]
+        result[name] = dict(dir=d, save=save[name], tmp=os.path.join(root, name + "_tmp"))
+    outs = {}
+    jax_cli = start_jax_cli(argv["jax"], result["jax"]["tmp"])
+    try:
+        outs["port"] = run_cli(cli.main, argv["port"], result["port"]["tmp"], device="cpu")
+        bundle = os.path.join(root, "int8.npz")
+        result["quant"] = {"bundle": bundle}
+        for name, flags in (("calibrated", CALIB + ["--quant_save", bundle]),
+                            ("loaded", ["--quant_load", bundle])):
+            out, err = run_cli(cli.main, COMMON + flags + ["--eval", "--save_dir", save["port"]],
+                               os.path.join(root, name + "_tmp"), device="cpu")
+            assert "random init" not in err
+            result["quant"][name] = printed(out)
+    finally:
+        outs["jax"] = finish_jax_cli(jax_cli)
+    for name, (out, err) in outs.items():
+        result[name].update(out=printed(out), err=err, tmp=sorted(os.listdir(result[name]["tmp"])))
     return result
 
 

@@ -28,7 +28,7 @@ from gaze_tpu_torch.models.weights import torch_state_from_jax
 from gaze_tpu_torch.serve import StreamServer
 from tests.test_torch_models import jax_variables, make_configs
 from tests.torch_gtea_tree import write_tree
-from tests.torch_mp_worker import drive, run_job
+from tests.torch_mp_worker import drive, finish_job, start_job
 from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
 
 W, S, SIZE, T = 2, 4, 32, 8
@@ -71,6 +71,8 @@ def union_script(jsrv, frames):
 
 @pytest.fixture(scope="module")
 def job(tmp_path_factory):
+    """The two ranks' results, and the JAX references, computed here
+    while the ranks run."""
     tmp = tmp_path_factory.mktemp("dist_serve")
     jcfg, tcfg = make_configs(image=dict(height=SIZE, width=SIZE),
                               tvl1=dict(pyramid_levels=2, warps=1, iters=3))
@@ -80,9 +82,6 @@ def job(tmp_path_factory):
                                             seed=s, blob_sigma=3.0)) for s in range(S)]
     frames = np.stack([s[0] for s in seqs], axis=1)     # (T + 1, S, H, W, 3)
     kw = dict(keep_heatmaps=True, idt_dispersion_px=IDT_PX)
-    want_pool = union_script(JStreamServer(jcfg, v, S, **kw), frames)
-    unsharded = drive(StreamServer(tcfg, weights, S, device="cpu", **kw), MESHED_ACTIONS,
-                      lambda t: frames[t])
 
     # rollout_eval_arrays: V=3 (padded to 4 over two ranks), one video
     # with untracked frames
@@ -93,20 +92,11 @@ def job(tmp_path_factory):
     r_valid = np.ones((V, T + 1), np.float32)
     r_valid[1, 3:5] = 0.0
     r_gaze[1, 3:5] = np.nan
-    jpipe = JGazePipeline(jcfg)
-    jmesh = jmake_mesh(W)
-    want_arrays = jrollout.rollout_eval_arrays(jpipe, v, r_frames, r_gaze, r_fix, r_valid,
-                                               chunk_len=4, mesh=jmesh)
 
     # rollout_eval_videos: groups of 3 rounded up to 4 over two ranks
     root = write_tree(tmp / "gtea", VIDEOS, HW, seed=11, fixsac=("Ben_Tea",),
                       untracked={"Ann_Soup": (3, 4)},
                       flows={v_: ("packed", "png") for v_ in VIDEOS if VIDEOS[v_] > 1})
-    jrecs = jbuild_manifest(root, native_hw=HW).frames
-    want_videos = {flow: jrollout.rollout_eval_videos(jpipe, v, jrecs, chunk_len=CHUNK,
-                                                      group_size=GROUP, mesh=jmesh,
-                                                      use_precomputed_flow=flow)
-                   for flow in (False, True)}
 
     spec = {
         "distributed": {"kind": "distributed_server", "args": dict(
@@ -121,7 +111,22 @@ def job(tmp_path_factory):
         spec[f"videos_{flow}"] = {"kind": "rollout_videos", "args": dict(
             cfg=tcfg, weights=weights, root=root, native_hw=HW, chunk_len=CHUNK,
             group_size=GROUP, flow=flow)}
-    ranks = run_job(spec, str(tmp))
+    ranks = start_job(spec, str(tmp))
+    try:
+        want_pool = union_script(JStreamServer(jcfg, v, S, **kw), frames)
+        unsharded = drive(StreamServer(tcfg, weights, S, device="cpu", **kw), MESHED_ACTIONS,
+                          lambda t: frames[t])
+        jpipe = JGazePipeline(jcfg)
+        jmesh = jmake_mesh(W)
+        want_arrays = jrollout.rollout_eval_arrays(jpipe, v, r_frames, r_gaze, r_fix, r_valid,
+                                                   chunk_len=4, mesh=jmesh)
+        jrecs = jbuild_manifest(root, native_hw=HW).frames
+        want_videos = {flow: jrollout.rollout_eval_videos(jpipe, v, jrecs, chunk_len=CHUNK,
+                                                          group_size=GROUP, mesh=jmesh,
+                                                          use_precomputed_flow=flow)
+                       for flow in (False, True)}
+    finally:
+        ranks = finish_job(ranks)
     return dict(ranks=ranks, want_pool=want_pool, unsharded=unsharded,
                 want_arrays=want_arrays, want_videos=want_videos)
 

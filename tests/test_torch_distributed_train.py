@@ -59,7 +59,7 @@ from gaze_tpu_torch.train import at as tat
 from gaze_tpu_torch.train import lf as tlf
 from gaze_tpu_torch.train import sp as tsp
 from gaze_tpu_torch.train import stages
-from tests.torch_mp_worker import run_job
+from tests.torch_mp_worker import finish_job, start_job
 from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
 from tests.torch_train_cases import (
     LR,
@@ -113,10 +113,12 @@ def run_jax(step, state, batches, tbptt=None):
 
 @pytest.fixture(scope="module")
 def job(tmp_path_factory):
-    """The JAX references, and the two ranks' results of every case."""
+    """The JAX references, and the two ranks' results of every case. The
+    ranks start as soon as their spec is written; the JAX steps run here
+    meanwhile."""
     tmp = tmp_path_factory.mktemp("dist_train")
     jmesh = jmake_mesh(W)
-    spec, want = {}, {}
+    spec, want, references = {}, {}, {}
 
     def add(name, kind, tcfg, jstate, create, jstep, batches, **extra):
         pipe = port_pipeline(tcfg)
@@ -126,7 +128,7 @@ def job(tmp_path_factory):
         if kind == "at_tbptt":
             L, H = tcfg.at.num_layers, tcfg.at.hidden_size
             tb = (np.zeros((len(batches[0]["mask"]), L, H), np.float32),) * 2
-        want[name] = run_jax(jstep, jstate, batches, tb)
+        references[name] = (jstep, jstate, batches, tb)
         spec[name] = {"kind": "train_steps", "args": dict(
             step=kind, cfg=tcfg, state_dir=d, batches=batches, **extra)}
 
@@ -190,7 +192,6 @@ def job(tmp_path_factory):
         step="sp", cfg=fcfg, state_dir=str(tmp / "flip"), batches=sp_batches)}
 
     # the SP eval step over the mesh
-    want["sp_eval"] = to_numpy(jsp.make_sp_eval_step(jpipe, jmesh)(jst, sp_batches[0]))
     spec["sp_eval"] = {"kind": "sp_eval", "args": dict(
         cfg=tcfg, state_dir=str(tmp / "sp"), batch=sp_batches[0])}
 
@@ -199,7 +200,13 @@ def job(tmp_path_factory):
                                seq_len=4, log_every=100, save_dir=str(tmp / "trainer"))
     spec["trainer"] = {"kind": "trainer", "args": dict(cfg=tcfg, opts=opts)}
 
-    ranks = run_job(spec, str(tmp))
+    ranks = start_job(spec, str(tmp))
+    try:
+        for name, args in references.items():
+            want[name] = run_jax(*args)
+        want["sp_eval"] = to_numpy(jsp.make_sp_eval_step(jpipe, jmesh)(jst, sp_batches[0]))
+    finally:
+        ranks = finish_job(ranks)
     return dict(ranks=ranks, want=want, tcfg=tcfg, fcfg=fcfg, jst=jst, opts=opts,
                 sp_batches=sp_batches, tmp=tmp)
 

@@ -38,7 +38,7 @@ from gaze_tpu_torch.ops import cuda
 from gaze_tpu_torch.ops.conv_int8 import ConvTap, conv3x3_int8_plain
 from gaze_tpu_torch.ops.cuda.conv_int8 import conv3x3_int8
 from gaze_tpu_torch.ops.cuda.tvl1_pd import pd_iterations, pd_iterations_plain
-from gaze_tpu_torch.ops.cuda.warp import warp3
+from gaze_tpu_torch.ops.cuda.warp import warp3, warp3_into
 from gaze_tpu_torch.ops.tvl1 import tvl1_flow
 from gaze_tpu_torch.ops.warp import warp3_plain
 from gaze_tpu_torch.serve import StreamServer
@@ -254,7 +254,7 @@ def fields(n, shape=(2, 18, 22), seed=0):
 
 def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
     cuda.reset_launch_counts()
-    f = fields(6)
+    f = fields(4)
     for a, b in zip(warp3(*f), warp3_plain(*f)):
         assert torch.equal(a, b)
     g = fields(10, seed=1)
@@ -327,19 +327,53 @@ def test_redesigned_wrappers_refuse_what_their_kernels_do_not_take(bad):
                                     torch.zeros((9, 16), dtype=torch.int32)))
 
 
-@pytest.mark.parametrize("bad", ["float64", "noncontiguous", "shape", "narrow"])
+@pytest.mark.parametrize("bad", ["float64", "noncontiguous", "shape", "narrow", "grad",
+                                 "device", "meta"])
 def test_wrappers_refuse_bad_inputs(bad):
-    f = fields(6)
+    """K1's wrapper (i1, u1, u2, i0) refuses what its kernel cannot take:
+    another dtype, a strided field, unequal shapes, H or W below 2, a
+    field that requires grad, fields on two devices, a device that is
+    neither the CPU nor CUDA."""
+    f = fields(4)
     if bad == "float64":
         f[2] = f[2].double()
     elif bad == "noncontiguous":
         f[1] = torch.zeros(2, 22, 18).transpose(1, 2)  # (2, 18, 22), strided
     elif bad == "shape":
-        f[4] = f[4][:, :-1]
+        f[3] = f[3][:, :-1]
+    elif bad == "narrow":
+        f = fields(4, shape=(2, 1, 22))
+    elif bad == "grad":
+        f[0] = f[0].requires_grad_()
+    elif bad == "device":
+        f[2] = f[2].to("meta")
     else:
-        f = fields(6, shape=(2, 1, 22))
+        f = [x.to("meta") for x in f]
     with pytest.raises((TypeError, ValueError)):
         warp3(*f)
+
+
+@pytest.mark.parametrize("bad", ["shape", "float64", "noncontiguous", "grad", "device"])
+def test_warp3_into_refuses_a_bad_buffer_and_fills_a_good_one(bad):
+    """``warp3_into`` writes K1's four fields into the caller's (4, B, H, W)
+    float32 buffer (on the CPU through the plain version, bit for bit) and
+    refuses any other buffer."""
+    f = fields(4)
+    out = torch.empty((4, *f[0].shape))
+    warp3_into(out, *f)
+    assert all(torch.equal(a, b) for a, b in zip(out, warp3_plain(*f)))
+    if bad == "shape":
+        out = torch.empty((4, 2, 18, 21))
+    elif bad == "float64":
+        out = out.double()
+    elif bad == "noncontiguous":
+        out = torch.empty((2, 18, 22, 4)).permute(3, 0, 1, 2)
+    elif bad == "grad":
+        out = out.requires_grad_()
+    else:
+        out = out.to("meta")
+    with pytest.raises(ValueError):
+        warp3_into(out, *f)
 
 
 @pytest.mark.parametrize("name", ["ImageConfig", "TVL1Config", "SPConfig", "ATConfig",

@@ -72,7 +72,7 @@ def old_solve_level(i0, i1, u1, u2, cfg):
     i1x, i1y = tvl1.central_gradient(i1)
     p = [torch.zeros_like(u1) for _ in range(4)]
     for _ in range(cfg.warps):
-        fields = tvl1.warp3_plain(i1, i1x, i1y, u1, u2, i0)
+        fields = tvl1.warp3_gather(i1, i1x, i1y, u1, u2, i0)
         u1, u2, *p = pd_iterations_plain(u1, u2, *p, *fields, iters=cfg.iters, tau=cfg.tau,
                                          lambda_=cfg.lambda_, theta=cfg.theta)
         if cfg.median_filter:
@@ -94,6 +94,22 @@ def test_solve_level_keeps_its_output(median):
     for pd in (True, False):
         got = tvl1._solve_level(i0, i1, u1, u2, dataclasses.replace(cfg, use_pallas_pd=pd))
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("shape", [(2, 14, 19), (1, 3, 9)])
+def test_solve_level_kernel_route_solves_the_plain_routes_flow(shape):
+    """The kernel route of the level solve, where K1 forms I1's gradients
+    at every warp, solves the same flow bit for bit as the plain route,
+    which forms them once per level (both on the CPU, so through the
+    plain versions), with K2 and without."""
+    rng = np.random.default_rng(24)
+    i0, i1 = (torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32)) for _ in range(2))
+    u1, u2 = (torch.from_numpy(rng.uniform(-3, 3, shape).astype(np.float32)) for _ in range(2))
+    cfg = TVL1Config(warps=3, iters=4)
+    for pd in (True, False):
+        kernel, plain = (tvl1._solve_level(i0, i1, u1, u2, dataclasses.replace(
+            cfg, use_pallas_warp=w, use_pallas_pd=pd)) for w in (True, False))
+        assert all(torch.equal(k, p) for k, p in zip(kernel, plain))
 
 
 @pytest.mark.parametrize("hw", [(3, 4), (1, 5)])

@@ -159,7 +159,8 @@ class TestWarp:
 
     @pytest.mark.parametrize("shape", [(2, 32, 64), (1, 14, 14), (2, 48, 224)])
     def test_warp3_matches_pallas_kernel(self, shape):
-        """warp3_plain (K1's plain version) against the Pallas warp in
+        """warp3_plain (K1's plain version, which forms I1's gradients
+        itself) against JAX's central_gradient and the Pallas warp in
         interpret mode, on the fields and flow of tests/test_pallas_warp.py
         (0-1 images, flow smooth enough for the kernel's per-tile residual
         bound), plus the fused epilogue of ops/tvl1.py:111-113. The Pallas
@@ -170,17 +171,76 @@ class TestWarp:
         rng = np.random.default_rng(11)
         i1 = rng.uniform(0, 1, shape).astype(np.float32)
         i0 = rng.uniform(0, 1, shape).astype(np.float32)
-        i1x, i1y = (np.asarray(g) for g in jimage.central_gradient(jnp.asarray(i1)))
+        i1x, i1y = jimage.central_gradient(jnp.asarray(i1))
         u1, u2 = smooth_flow(B, H, W, 4.0, seed=12, noise=0.0)
         assert np.abs(u1).max() < MAX_DISP and np.abs(u2).max() < MAX_DISP
         ju1, ju2 = jnp.asarray(u1), jnp.asarray(u2)
-        jw, jx, jy = warp_fields(
-            (jnp.asarray(i1), jnp.asarray(i1x), jnp.asarray(i1y)), ju1, ju2, interpret=True
-        )
+        jw, jx, jy = warp_fields((jnp.asarray(i1), i1x, i1y), ju1, ju2, interpret=True)
         expect = (jx, jy, jx * jx + jy * jy, jw - jx * ju1 - jy * ju2 - jnp.asarray(i0))
-        got = warp.warp3_plain(t(i1), t(i1x), t(i1y), t(u1), t(u2), t(i0))
+        got = warp.warp3_plain(t(i1), t(u1), t(u2), t(i0))
         for g, e in zip(got, expect):
             close(g, e, atol=1e-4)
+
+    @pytest.mark.parametrize("shape", [(2, 9, 13), (1, 2, 11), (2, 3, 7), (1, 8, 2),
+                                       (2, 5, 3), (1, 2, 2), (1, 3, 3)])
+    def test_warp3_plain_is_the_gradients_then_the_gather(self, shape):
+        """K1's plain version equals central_gradient followed by the
+        gather bit for bit, and so does the kernel's own scheme, emulated
+        here in float32 numpy: each tap's gradient formed from the 12
+        loads of the 4x4 neighbourhood without its corners, one-sided on
+        the border. Displacements of +-40 px push taps onto every border;
+        H or W of 2 and 3 make the one-sided differences meet."""
+        B, H, W = shape
+        rng = np.random.default_rng(13)
+        i1 = rng.uniform(0, 255, shape).astype(np.float32)
+        i0 = rng.uniform(0, 255, shape).astype(np.float32)
+        u1, u2 = smooth_flow(B, H, W, 39.0, seed=14)
+        got = warp.warp3_plain(t(i1), t(u1), t(u2), t(i0))
+        gx, gy = image.central_gradient(t(i1))
+        want = warp.warp3_gather(t(i1), gx, gy, t(u1), t(u2), t(i0))
+        taps = kernel_taps(i1, u1, u2, i0)
+        for g, w, k in zip(got, want, taps):
+            assert torch.equal(g, w)
+            assert torch.equal(g, torch.from_numpy(k))
+
+
+def kernel_taps(i1, u1, u2, i0):
+    """csrc/warp.cu's arithmetic in float32 numpy, operation by operation:
+    the corner and weights of each pixel, the 12 loads around the corner
+    and each tap's central (or one-sided) difference, the shared-weight
+    sums and the epilogue."""
+    f32 = np.float32
+    B, H, W = i1.shape
+    yy, xx = np.mgrid[0:H, 0:W]
+    xs = np.minimum(np.maximum(xx.astype(f32) + u1, f32(0)), f32(W - 1))
+    ys = np.minimum(np.maximum(yy.astype(f32) + u2, f32(0)), f32(H - 1))
+    x0 = np.clip(np.floor(xs).astype(np.int64), 0, W - 2)
+    y0 = np.clip(np.floor(ys).astype(np.int64), 0, H - 2)
+    fx, fy = xs - x0.astype(f32), ys - y0.astype(f32)
+    w = ((f32(1) - fx) * (f32(1) - fy), fx * (f32(1) - fy), (f32(1) - fx) * fy, fx * fy)
+    b = np.arange(B)[:, None, None]
+
+    def at(r, c):
+        return i1[b, r, c]
+
+    def central(vr, vl, edge):
+        d = vr - vl
+        return np.where(edge, d, f32(0.5) * d)
+
+    xe0, xe1, ye0, ye1 = x0 == 0, x0 + 1 == W - 1, y0 == 0, y0 + 1 == H - 1
+    xl, xr = np.where(xe0, x0, x0 - 1), np.where(xe1, x0 + 1, x0 + 2)
+    yu, yd = np.where(ye0, y0, y0 - 1), np.where(ye1, y0 + 1, y0 + 2)
+    a = (at(y0, x0), at(y0, x0 + 1), at(y0 + 1, x0), at(y0 + 1, x0 + 1))
+    gx = (central(a[1], at(y0, xl), xe0), central(at(y0, xr), a[0], xe1),
+          central(a[3], at(y0 + 1, xl), xe0), central(at(y0 + 1, xr), a[2], xe1))
+    gy = (central(a[2], at(yu, x0), ye0), central(a[3], at(yu, x0 + 1), ye0),
+          central(at(yd, x0), a[0], ye1), central(at(yd, x0 + 1), a[1], ye1))
+
+    def wsum(v):
+        return v[0] * w[0] + v[1] * w[1] + v[2] * w[2] + v[3] * w[3]
+
+    i1w, wx, wy = wsum(a), wsum(gx), wsum(gy)
+    return wx, wy, wx * wx + wy * wy, i1w - wx * u1 - wy * u2 - i0
 
 
 # --------------------------------------------------------- primal-dual

@@ -178,8 +178,8 @@ def vgg_case():
     inputs and the JAX package's calibrated scales."""
     rng = np.random.default_rng(0)
     x = rng.normal(0, 1, (2, 32, 32, 3)).astype(np.float32)
-    params = jax.tree.map(np.asarray, JVGG(stages=NARROW).init(jax.random.key(0),
-                                                               jnp.asarray(x))["params"])
+    params = jax.tree.map(np.asarray, jax.jit(JVGG(stages=NARROW).init)(
+        jax.random.key(0), jnp.asarray(x))["params"])
     for name in LAYERS:
         params[name]["bias"] = rng.normal(0, 0.01, params[name]["bias"].shape).astype(np.float32)
     vgg = VGG16Features(3, NARROW)
@@ -264,7 +264,7 @@ def test_binding_atol_on_the_deployed_grid():
     # the reference's case (tests/test_qat.py's vgg_setup), calibrated by the
     # port (its scales are the JAX package's within 1e-6, test_torch_quant.py)
     x = np.random.default_rng(0).normal(0.0, 1.0, (2, 32, 32, 3)).astype(np.float32)
-    ref = bridged_vgg(JVGG().init(jax.random.key(0), jnp.asarray(x))["params"],
+    ref = bridged_vgg(jax.jit(JVGG().init)(jax.random.key(0), jnp.asarray(x))["params"],
                       VGG16_STAGES)
     q = build_quant_vgg(ref, calibrate_vgg(ref, [torch.from_numpy(x)]))
     lsb = (q.act_scales["conv5_3"] * q.w_scales["conv5_3"]).numpy()

@@ -236,8 +236,11 @@ def test_train_state_from_jax_carries_the_whole_state():
     rng = np.random.default_rng(5)
     gtree = lambda: jax.tree.map(lambda s: rng.normal(0, 0.1, s).astype(np.float32), shapes,
                                  is_leaf=lambda x: isinstance(x, tuple))  # noqa: E731
+    # one XLA program for the updates (eagerly, each parameter shape
+    # compiles its own; the two give the same bits)
+    update = jax.jit(lambda s, g: s.apply_gradients(g))
     for _ in range(2):
-        jst = jst.apply_gradients(gtree())
+        jst = update(jst, gtree())
     jst = to_np(jst)
     pipe = port_pipeline(tcfg)
     st = port_state(create_sp_state, pipe, jst)
@@ -254,7 +257,7 @@ def test_train_state_from_jax_carries_the_whole_state():
     for name in st.batch_stats():
         assert torch.equal(sd[name], want[name]), name
     g = gtree()
-    jst2 = to_np(jst.apply_gradients(g))
+    jst2 = to_np(update(jst, g))
     gb = bridged(st.module, g, jst.batch_stats)
     st.apply_gradients([gb[n] for n in st.param_names])
     want = bridged(st.module, jst2.params, jst2.batch_stats)

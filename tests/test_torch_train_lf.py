@@ -83,7 +83,7 @@ def jgrad(case, sal, amap, gaze, weight):
         t = jrender(gaze, cfg.image.height, cfg.image.width, cfg.image.heatmap_sigma)
         return jfloss(pred, t, cfg.loss, sample_weight=weight)
 
-    return to_numpy(jax.grad(loss)(case["jlf"].params))
+    return to_numpy(jax.jit(jax.grad(loss))(case["jlf"].params))
 
 
 def assert_lf_step(st, jparams, jg):

@@ -276,7 +276,7 @@ def test_training_mesh_and_kernels_refuse_what_they_cannot_run(case):
         tsp.make_sp_train_step(pipe, mesh=object())
     from gaze_tpu_torch.ops.cuda.warp import warp3
 
-    f = [torch.zeros(1, 4, 4) for _ in range(6)]
+    f = [torch.zeros(1, 4, 4) for _ in range(4)]
     f[3] = f[3].requires_grad_()
     with pytest.raises(ValueError):
         warp3(*f)

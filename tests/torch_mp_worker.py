@@ -1,5 +1,6 @@
 """One rank of the port's two-process tests (not collected: no ``test_``
-prefix), and :func:`run_job`, which starts the ranks.
+prefix), and :func:`start_job` and :func:`finish_job`, which start the ranks
+and collect them.
 
     python tests/torch_mp_worker.py --rank R --world W --init file:///tmp/x/rdv \
         --spec spec.pkl --out out.R.pkl
@@ -199,11 +200,10 @@ CASES = {"train_steps": train_steps, "sp_eval": sp_eval, "trainer": trainer,
          "rollout_arrays": rollout_arrays, "rollout_videos": rollout_videos}
 
 
-def run_job(spec, tmp_path, world: int = 2, timeout: float = 300.0):
-    """Run ``spec`` on ``world`` ranks of this script, rendezvous through
-    a file in ``tmp_path``; returns each rank's results. A rank that
-    fails, or a job that outlives ``timeout`` seconds (every rank is
-    then killed), fails with the ranks' output."""
+def start_job(spec, tmp_path, world: int = 2):
+    """Start ``spec`` on ``world`` ranks of this script, rendezvous through
+    a file in ``tmp_path``; :func:`finish_job` collects the ranks. The
+    caller may compute meanwhile (the ranks run one torch thread each)."""
     spec_path = os.path.join(tmp_path, "spec.pkl")
     with open(spec_path, "wb") as f:
         pickle.dump(spec, f)
@@ -214,6 +214,14 @@ def run_job(spec, tmp_path, world: int = 2, timeout: float = 300.0):
          "--spec", spec_path, "--out", os.path.join(tmp_path, f"out.{r}.pkl")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
         for r in range(world)]
+    return procs, tmp_path
+
+
+def finish_job(job, timeout: float = 300.0):
+    """Each rank's results of a :func:`start_job` job. A rank that fails,
+    or a job that outlives ``timeout`` seconds (every rank is then
+    killed), fails with the ranks' output."""
+    procs, tmp_path = job
     logs = []
     try:
         for p in procs:
@@ -228,7 +236,7 @@ def run_job(spec, tmp_path, world: int = 2, timeout: float = 300.0):
         raise RuntimeError(f"ranks {failed} failed:\n" + "\n".join(
             f"--- rank {r}\n{log[-3000:]}" for r, log in enumerate(logs)))
     out = []
-    for r in range(world):
+    for r in range(len(procs)):
         with open(os.path.join(tmp_path, f"out.{r}.pkl"), "rb") as f:
             out.append(pickle.load(f))   # written by the rank started above
     return out

@@ -3,11 +3,12 @@ from both packages' dataclasses, JAX train states with randomized biases
 and BatchNorm statistics carried into the port, synthetic batches, and
 the comparison helpers.
 
-The configuration: 32² frames, a two-level TV-L1 of 2 warps x 3
-iterations, VGG stages of 4-16 channels in the 2,2,3,3,3 layout, a
-16-wide LSTM of 12 hidden units pooling one conv5 cell, an LF head of
-two 4-channel convs, lr 1e-3 and weight decay 1e-2 (large enough that
-the decay term shows).
+The configuration: 32² frames, a one-level TV-L1 of 1 warp x 3
+iterations (the solve's pyramid and warps are the TV-L1 tests' point, not
+these; each level and warp is a copy in every compiled JAX step), VGG
+stages of 4-16 channels in the 2,2,3,3,3 layout, a 16-wide LSTM of 12
+hidden units pooling one conv5 cell, an LF head of two 4-channel convs,
+lr 1e-3 and weight decay 1e-2 (large enough that the decay term shows).
 """
 
 import numpy as np
@@ -26,7 +27,7 @@ from gaze_tpu_torch.models.weights import module_to_torch_state, train_state_fro
 LR = 1e-3
 SECTIONS = dict(
     image=dict(height=32, width=32, heatmap_sigma=4.0),
-    tvl1=dict(pyramid_levels=2, warps=2, iters=3),
+    tvl1=dict(pyramid_levels=1, warps=1, iters=3),
     sp=dict(stages=((4, 4), (8, 8), (8, 8, 8), (16, 16, 16), (16, 16, 16)),
             fused_channels=16, decoder_channels=(16, 8, 8, 4)),
     at=dict(feature_dim=16, hidden_size=12, roi_size=1),
@@ -71,13 +72,17 @@ def randomize(tree, seed):
 
 def jax_state(create, jpipe, seed=0):
     """A JAX stage state (``create(rng, pipeline)``) with randomized
-    biases and BatchNorm statistics, its leaves as numpy arrays."""
-    st = create(jax.random.key(seed), jpipe)
+    biases and BatchNorm statistics, its leaves as numpy arrays. The
+    initialization and the optimizer's init run as one jit each: run
+    eagerly, each parameter shape compiled its own initializer, about a
+    hundred XLA programs for one state."""
+    st = jax.jit(lambda key: create(key, jpipe))(jax.random.key(seed))
     st = jax.tree.map(np.asarray, st)
     params = randomize(st.params, seed + 1)
     stats = randomize(st.batch_stats, seed + 2) if st.batch_stats else st.batch_stats
     # numpy leaves throughout: a JAX step donates (deletes) its state's arrays
-    return to_numpy(st.replace(params=params, batch_stats=stats, opt_state=st.tx.init(params)))
+    return to_numpy(st.replace(params=params, batch_stats=stats,
+                               opt_state=jax.jit(st.tx.init)(params)))
 
 
 def to_numpy(tree):
