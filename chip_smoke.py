@@ -121,7 +121,7 @@ without gaze txt, one more video through an MJPEG AVI):
   (K1/K2 in every step, exact launches per step), then SP -> AT -> LF with
   "auto" (the flow images: no K1/K2 launch).
 
-Last, the command line (``gaze_tpu_torch.cli``) on that tree, with cuDNN
+Then the command line (``gaze_tpu_torch.cli``) on that tree, with cuDNN
 deterministic so that two pipelines on the same weights agree bit for
 bit: the training stages (SP, AT, LF at B=4, 2 steps each, ``--tboard``)
 through ``python -m gaze_tpu_torch.cli`` in a subprocess, its TensorBoard
@@ -140,6 +140,41 @@ bit-equal to a direct server on the same ``decode_batch`` frames),
 ``utils.profiling.device_time`` of K1 within 25% of the profiler's device
 time.
 
+Last, in a process of their own (this script with ``--only``; see
+BENCH_TIMEOUT), the configurations that the JAX package's benchmark
+(``bench.py``) times at its defaults, B=128 streams x T=8 frames at 224²,
+the streams laid out as ``bench.py:_stream_seqs`` lays them out (16
+synthetic sequences from numpy seeds, stream i the sequence of seed i mod
+16):
+
+- kernels_b128: K1 bit for bit at every pyramid level of the three
+  presets at B=128; K2 within 1e-4 at each (level, iterations, median
+  passes) of them, its tile side by ``pick_tile``'s rule beside the grid
+  of the traced launch; K3 bit for bit at the 12 turbo layers as the main
+  path runs them, its (BK, BN) by the launcher's rule beside the
+  instantiation the trace names (conv5_1-conv5_3 take BN = 128 at B=128,
+  64 at B=8); each with its device time and bound;
+- clip_b128: ``run_clip`` under turbo, production and parity, timed 3
+  times after a warm-up (exact launches in each), the device busy time and
+  the K3 instantiations of a whole clip, peak memory; the rows of one
+  seed within BENCH_ROW_TOL, rows 0-7 within B8_TOL of the same streams at
+  B=8 (the first step's gap per stage beside it), production's streams
+  0-1 against the CPU;
+- serve_b128: a ``StreamServer`` of 128 slots under turbo and production,
+  9 ``submit()`` ticks and a ``flush()`` held to ``run_clip``, then as
+  ``bench.py --mode serve`` runs it (online I-DT, 3 x 8 timed submits);
+- train_b128: the production SP step at B=128 (bf16, remat "none") on
+  train_sp's batch repeated 16 times, its loss, gradient and BatchNorm
+  statistics against the step on the 8 rows, timed, peak memory (a batch
+  that does not fit fails the run);
+- options: ``run_clip`` at B=8 under parity with the pixelshuffle and
+  halfres decoders and ``at_pool="prediction"``, each against a CPU run;
+  a turbo ``StreamServer`` with the pixelshuffle decoder held to
+  ``run_clip``.
+
+``python3 chip_smoke.py --only clip_b128,serve_b128`` runs just the named
+ones of these five phases (any of them) and prints no result line.
+
 Each path runs with the launch counters set to 0 just before it and read
 just after, and must have launched each of its kernels as often as its
 configuration says (the server per tick). A short CPU run of each clip
@@ -156,6 +191,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -323,6 +359,62 @@ QAT_FLIP_SHARE = 1e-3
 # 0.035): the port's He-normal weights give features of order 1, and the
 # JAX package's own forwards fall below 98% with it there too.
 QAT_BIND_COSINE, QAT_BIND_SHARE, QAT_BIND_RTOL, QAT_BIND_ATOL_LSB = 0.999, 0.98, 5e-2, 18900
+# The JAX package's benchmark at its defaults (bench.py --batch 128 --frames
+# 8, 224^2): BENCH_B streams laid out as bench.py:_stream_seqs lays them
+# out, BENCH_G synthetic sequences from numpy seeds 0 .. 15 and stream i the
+# sequence of seed i mod 16, weights from the torch.Generator seed 0, under
+# each preset of bench.py:PRESETS; clips and serve runs timed BENCH_RUNS
+# times after a warm-up.
+BENCH_B, BENCH_G, BENCH_RUNS = 128, 16, 3
+BENCH_PRESETS = ("turbo", "production", "parity")
+# Rows of one seed hold the same frames and every op of the step computes
+# a row from that row alone, so they agree up to the order in which a
+# kernel sums a row's terms: bit for bit under turbo and production, and
+# a few float32 ulps under parity, where a cuDNN float32 convolution at
+# B=128 sums in an order that depends on the row's place (first measured
+# on an H100: 4.8e-7). Heatmaps in [0, 1] within BENCH_ROW_TOL, gaze equal.
+BENCH_ROW_TOL = 1e-5
+# Production (bf16, no int8) on the card against the CPU (streams 0-1 at
+# B=2 over BENCH_CPU_T steps) and its B=128 rows against a B=8 run: both
+# pairs are bf16 runs of one float32 model that round at other places
+# (the card's and the CPU's kernels; cuDNN's kernels for B=8 and for
+# B=128), each about the rounding's own effect away from the float32
+# result. So they are held within BF16_BAND_FACTOR times that effect,
+# measured in the same run: the card's B=8 clip against the same weights
+# in float32 (first measured on an H100 at full width: B=128 vs B=8
+# 3.3e-2, the CPU 3.2e-2; tests/test_torch_turbo.py measured 1.1e-3 at
+# narrow width). Gaze equal or a near tie; each stream's AAE and AUC sums
+# within card_vs_cpu_bands.
+BF16_BAND_FACTOR, BENCH_CPU_B, BENCH_CPU_T = 2.0, 2, 2
+# Rows 0-7 of the B=128 clip against the same streams at B=8 on the card:
+# cuDNN picks its convolution and GEMM kernels by shape, so the two
+# batches sum in other orders. In float32 that is SERVE_CLIP_TOL's
+# rounding; under turbo a bf16 activation can round to the other
+# neighbour (and a code then flip in the int8 streams): the band of a
+# card-vs-CPU turbo run, where the kernels differ too (first measured on
+# an H100: 3.7e-3, gaze equal, the saliency equal at the first step);
+# production as above (None: BF16_BAND_FACTOR times the bf16 effect).
+B8_TOL = {"parity": SERVE_CLIP_TOL, "production": None, "turbo": CPU_TURBO_TOL}
+# The options phase: run_clip at B=8 under parity with each option, the
+# CPU on streams 0-1 as above; a turbo StreamServer with the pixelshuffle
+# decoder held to run_clip of the same pipeline.
+BENCH_OPTIONS = (("pixelshuffle", dict(decoder_impl="pixelshuffle")),
+                 ("halfres", dict(decoder_impl="halfres")),
+                 ("at_pool_prediction", dict(at_pool="prediction")))
+# train_b128: the production SP step (bf16, remat "none" as bench.py --mode
+# train runs it) on train_sp's 8-row batch repeated BENCH_B / TRAIN_B times,
+# against the step on the 8 rows from the same state. Train-mode BatchNorm
+# sees the same statistics and the loss is the same mean, so they differ
+# only where cuDNN's kernels for the larger batch sum in another order and
+# a bf16 activation or gradient rounds to the other neighbour (a relative
+# step of 2^-8): the BatchNorm statistics, means of bf16 activations,
+# within one such step; the loss, a mean of float32 terms of rounded
+# logits, within 1e-3; the whole model's gradient (grad_compare's relative
+# L2), each layer's backward rounded to bf16 through 13 VGG layers and the
+# decoder, within 2.5e-2: twice the first measurement on an H100 (1.27e-2,
+# the BatchNorm statistics 1.58e-3, the loss 1.3e-5). A gradient of other
+# rows, or summed where it should be averaged, is off by order 1.
+TRAIN_B128_LOSS_RTOL, TRAIN_B128_GRAD_RTOL, TRAIN_B128_STATS_RTOL = 1e-3, 2.5e-2, 2.0**-8
 
 
 def fail(msg: str) -> None:
@@ -359,13 +451,18 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(torch, fn, tries: int = 3):
+def device_profile(torch, fn, tries: int = 3, grids_of: str | None = None, expect=None):
     """Run ``fn`` once under ``torch.profiler``. Returns the host wall
     seconds and, per device kernel name, (device µs summed, launches) from
     the CUPTI trace. The CUDA-event times above include the wrapper's host
     cost when the host enqueues slower than the card runs; these do not.
     A trace that comes back without device events (seen once in a few
-    hundred traces on the card) is taken again, up to ``tries`` times."""
+    hundred traces on the card) is taken again, up to ``tries`` times; with
+    ``expect`` = (part of a kernel name, launches), so is one that holds
+    fewer launches of that kernel than ``fn`` makes (the card's profiler
+    has dropped some of a trace's events). With ``grids_of``, also returns
+    the launch grids of the kernels whose name holds it, in launch order,
+    from the trace's ``grid`` field."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -381,9 +478,17 @@ def device_profile(torch, fn, tries: int = 3):
             if e.device_type == DeviceType.CUDA:
                 us, n = by_name.get(e.name, (0.0, 0))
                 by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-        if by_name:
+        if by_name and (expect is None or device_us(by_name, expect[0])[1] >= expect[1]):
             break
-    return wall, by_name
+    if grids_of is None:
+        return wall, by_name
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    return wall, by_name, [e.get("args", {}).get("grid") for e in events
+                           if e.get("cat") == "kernel" and grids_of in e.get("name", "")]
 
 
 def device_us(by_name, part: str):
@@ -3365,6 +3470,782 @@ def cli_phase(torch, dev, cuda, root: str, names, rng):
     return launches
 
 
+# ----------------------------------- the reference benchmark's configurations ----
+K3_INSTANCE = re.compile(r"conv3x3_int8_kernel<(\d+), ?(\d+), ?(true|false), ?(true|false)>")
+
+
+def bench_streams(frames: int):
+    """bench.py:_stream_seqs's layout of BENCH_B streams: BENCH_G synthetic
+    sequences of ``frames`` frames at SIZE^2 (numpy seeds 0 .. BENCH_G - 1),
+    stream i the sequence of seed i mod BENCH_G. Returns (the sequences,
+    frames (BENCH_B, frames, H, W, 3) uint8, gaze (BENCH_B, frames, 2),
+    fixsac (BENCH_B, frames))."""
+    from gaze_tpu_torch.data.synthetic import SyntheticSpec, generate_sequence
+
+    seqs = [generate_sequence(SyntheticSpec(num_frames=frames, height=SIZE, width=SIZE, seed=s))
+            for s in range(BENCH_G)]
+    rows = [i % BENCH_G for i in range(BENCH_B)]
+    return (seqs, *(np.stack([seqs[i][k] for i in rows]) for k in range(3)))
+
+
+def bench_pipeline(torch, name: str, seqs, **options) -> dict:
+    """The pipeline of bench.py's preset ``name``, weights from the
+    torch.Generator seed 0; turbo's int8 streams calibrated as bench.py
+    calibrates them (4 frame pairs of the BENCH_G sequences, fewer in a
+    shorter clip; the 99.9th percentile, the bf16 stem). ``options``:
+    GazePipeline's ``at_pool``, ``decoder_impl``. Returns the pipeline,
+    its config, dtype, calibration and K1/K2/K3 launches per step."""
+    from gaze_tpu_torch.core.config import PRESETS, preset_config
+    from gaze_tpu_torch.models.pipeline import GazePipeline
+    from gaze_tpu_torch.models.quant import LAYERS, calibrate_pipeline_sp
+
+    p = PRESETS[name]
+    cfg = preset_config(name)
+    dtype = getattr(torch, p["dtype"])
+    per_step = flow_launches(cfg, 1)
+    qsp, calib_s = None, None
+    if p["quant"]:
+        pairs = [(np.stack([s[0][t] for s in seqs]), np.stack([s[0][t + 1] for s in seqs]))
+                 for t in range(min(4, len(seqs[0][0]) - 1))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qsp = calibrate_pipeline_sp(GazePipeline(cfg, dtype=dtype, seed=0), pairs,
+                                    percentile=p["quant_percentile"],
+                                    bf16_stem=p["quant_stem"] == "bf16")
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        per_step["conv3x3_int8"] = 2 * (len(LAYERS) - (1 if p["quant_stem"] == "bf16" else 0))
+    pipe = GazePipeline(cfg, dtype=dtype, seed=0, quant_sp=qsp, **options)
+    return dict(pipe=pipe, cfg=cfg, dtype=dtype, qsp=qsp, per_step=per_step,
+                calibration_s=calib_s)
+
+
+def k3_rule(n: int, H: int, W: int, ci: int, co: int):
+    """(BK, BN) that ``conv3x3_int8_launch`` (csrc/conv_int8.cu) picks for a
+    layer: BK the widest of 128, 64 and 32 channels dividing Ci; BN 128
+    where Co is a multiple of 128 and the 8x16-pixel tiles times Co / 128
+    reach 132 (a tile for every SM), else 64."""
+    tiles = n * -(-H // 8) * -(-W // 16)
+    bn = 128 if co % 128 == 0 and tiles * (co // 128) >= 132 else 64
+    return (128 if ci % 128 == 0 else 64 if ci % 64 == 0 else 32), bn
+
+
+def k3_instance(bk: int, bn: int, dequant: bool, pool: bool) -> str:
+    """A K3 instantiation as its template arguments <BK, BN, DEQUANT, POOL>."""
+    return f"<{bk}, {bn}, {str(dequant).lower()}, {str(pool).lower()}>"
+
+
+def k3_instances(by_name) -> dict:
+    """Launches of each K3 instantiation in a profile, read from the
+    kernels' names (a name that does not parse is kept whole)."""
+    out = {}
+    for k, (_, n) in by_name.items():
+        if "conv3x3_int8_kernel" in k:
+            m = K3_INSTANCE.search(k)
+            key = k3_instance(int(m[1]), int(m[2]), m[3] == "true", m[4] == "true") if m else k
+            out[key] = out.get(key, 0) + n
+    return out
+
+
+def k3_step_instances(n: int) -> dict:
+    """The K3 instantiations of one turbo step at batch ``n`` by the rule:
+    12 layers of both streams, the stage-ending ones pooled, conv5_3
+    dequantizing."""
+    out = {}
+    for name, g, ci, co in TURBO_INT8_LAYERS:
+        key = k3_instance(*k3_rule(n, g, g, ci, co), name == "conv5_3",
+                          name in TURBO_POOLED_LAYERS)
+        out[key] = out.get(key, 0) + 2
+    return out
+
+
+def k2_tile_rule(n: int, H: int, W: int, halo: int) -> int:
+    """The tile side that ``pick_tile`` (csrc/tvl1_pd.cu) picks: the least
+    region (side + 2 halo)^2 per block times the waves of blocks on 132
+    SMs, regions of at most 90 px a side, the larger side on a tie."""
+    best = best_cost = None
+    for side in (64, 56, 48, 40, 32, 28, 24, 16, 8):
+        r = side + 2 * halo
+        if r > 90:
+            continue
+        cost = -(-(n * -(-H // side) * -(-W // side)) // 132) * r * r
+        if best is None or cost < best_cost:
+            best, best_cost = side, cost
+    return best
+
+
+def kernels_b128_phase(torch, dev) -> dict:
+    """K1, K2 and K3 against their plain versions at every launch shape of
+    the B=128 paths, on random inputs: K1 bit for bit at each preset's
+    pyramid levels; K2 within K2_TOL at each (level, iterations, median
+    passes) of the three presets, its tile side by pick_tile's rule beside
+    the grid of the traced launch; K3 bit for bit at the 12 turbo layers as
+    the main path runs them (pooled where a stage ends, conv5_3
+    dequantizing), its (BK, BN) by the launcher's rule beside the
+    instantiation the trace names, and the layers whose BN differs from
+    B=8's. Each with its device time and bound. Returns the summary of the
+    kernels line."""
+    from gaze_tpu_torch.core.config import preset_config
+    from gaze_tpu_torch.ops.conv_int8 import (ConvTap, border_table, conv3x3_int8_plain,
+                                               maxpool2x2_int8)
+    from gaze_tpu_torch.ops.cuda.conv_int8 import conv3x3_int8
+    from gaze_tpu_torch.ops.cuda.tvl1_pd import pd_iterations
+    from gaze_tpu_torch.ops.cuda.warp import warp3_into
+    from gaze_tpu_torch.ops.tvl1 import _median_passes, _pyramid_shapes
+    from gaze_tpu_torch.ops.warp import warp3_plain
+
+    rng = np.random.default_rng(BENCH_B)
+    n = BENCH_B
+    # each preset's solver calls: (level grid, iterations, median passes)
+    solves, t1 = {}, None
+    for name in BENCH_PRESETS:
+        t1 = preset_config(name).tvl1
+        fh = int(round(SIZE * t1.flow_scale))
+        for hw in _pyramid_shapes(fh, fh, t1.pyramid_levels, t1.pyramid_factor):
+            solves.setdefault((*hw, t1.iters, _median_passes(t1)), []).append(name)
+    summary = {"k1": [], "k2": [], "k3": []}
+
+    for H, W in sorted({k[:2] for k in solves}, reverse=True):
+        args = k1_args(torch, dev, rng, (n, H, W))
+        buf = args[1].new_empty((4, n, H, W))
+        warp3_into(buf, *args)
+        ref = warp3_plain(*args)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(g, r) for g, r in zip(buf.unbind(), ref))
+        err = max(float((g - r).abs().max()) for g, r in zip(buf.unbind(), ref))
+        _, prof = device_profile(torch, lambda: [warp3_into(buf, *args) for _ in range(5)],
+                                 expect=("warp3_kernel", 5))
+        dev_us, dev_n = device_us(prof, "warp3_kernel")
+        bound = max(8 * 4 * n * H * W / HBM_BYTES_PER_S,
+                    K1_FLOPS_PER_PIXEL * n * H * W / F32_FLOPS) * 1e3
+        row = dict(shape=[n, H, W], bitwise_equal=equal, max_abs_err=err,
+                   device_us=dev_us / dev_n if dev_n else None, bound_us=bound * 1e3)
+        emit("K1_b128", **row)
+        summary["k1"].append(row)
+        if not equal:
+            fail(f"K1 at {(n, H, W)}: not bit-equal to its plain version (max abs {err})")
+        del args, buf, ref
+
+    kw = dict(tau=t1.tau, lambda_=t1.lambda_, theta=t1.theta)
+    for (H, W, iters, passes), presets in sorted(solves.items(), reverse=True):
+        args = k2_args(torch, dev, rng, (n, H, W))
+        ikw = dict(kw, iters=iters)
+        got = pd_iterations(*args, median_passes=passes, **ikw)
+        ref = k2_plain(args, ikw, passes)
+        torch.cuda.synchronize()
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        equal = all(torch.equal(g, r) for g, r in zip(got, ref))
+        side = k2_tile_rule(n, H, W, iters + passes)
+        want_grid = [-(-W // side), -(-H // side), n]
+        _, prof, grids = device_profile(
+            torch, lambda: [pd_iterations(*args, median_passes=passes, **ikw) for _ in range(5)],
+            grids_of="pd_iterations_kernel", expect=("pd_iterations_kernel", 5))
+        dev_us, dev_n = device_us(prof, "pd_iterations_kernel")
+        flops = (K2_FLOPS_PER_PIXEL_ITER * iters + K2_OPS_PER_PIXEL_MEDIAN * passes) * n * H * W
+        bound = max(16 * 4 * n * H * W / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+        row = dict(shape=[n, H, W], iters=iters, median_passes=passes, presets=presets,
+                   max_abs_err=err, bitwise_equal=equal, tol=K2_TOL, tile_side=side,
+                   tile_side_b8=k2_tile_rule(B, H, W, iters + passes),
+                   traced_grids=sorted({tuple(g) for g in grids if g}), traced_launches=len(grids),
+                   rule_grid=want_grid, device_us=dev_us / dev_n if dev_n else None,
+                   bound_us=bound * 1e3)
+        emit("K2_b128", **row)
+        summary["k2"].append(row)
+        if not err <= K2_TOL:
+            fail(f"K2 at {(n, H, W)} iters={iters} median_passes={passes}: max abs error "
+                 f"{err} > {K2_TOL}")
+        if any(g is not None and list(g) != want_grid for g in grids):
+            fail(f"K2 at {(n, H, W)}: traced grids {grids}, pick_tile's rule gives {want_grid}")
+        del args, got, ref
+
+    gen = torch.Generator(device=dev).manual_seed(BENCH_B)
+    step = dict(device_ms=0.0, bound_ms=0.0)
+    for name, g, ci, co in TURBO_INT8_LAYERS:
+        dequant, pool = name == "conv5_3", name in TURBO_POOLED_LAYERS
+        x = torch.randint(-128, 128, (n, g, g, ci), dtype=torch.int8, device=dev, generator=gen)
+        w = torch.randint(-127, 128, (co, 3, 3, ci), dtype=torch.int8, device=dev, generator=gen)
+        if dequant:   # as k3_phase: c = 128 * col_sum, a = sx * w_scale
+            c = 128.0 * w.float().sum(dim=(1, 2, 3))
+            a = torch.from_numpy(rng.uniform(1e-6, 1e-5, co).astype(np.float32)).to(dev)
+            bias = torch.from_numpy(rng.normal(0, 1, co).astype(np.float32)).to(dev)
+        else:
+            a = torch.from_numpy((rng.normal(0, 2e-3, co) ** 2 + 1e-4).astype(np.float32)).to(dev)
+            c = torch.from_numpy(rng.normal(-20, 40, co).astype(np.float32)).to(dev)
+            bias = None
+        tap = ConvTap(w, a, c.contiguous(), bias, -128, border_table(w, -128))
+        got = conv3x3_int8(x, tap, pool=pool)
+        ref = conv3x3_int8_plain(x, tap)
+        if pool:
+            ref = maxpool2x2_int8(ref)
+        torch.cuda.synchronize()
+        equal = got.dtype == ref.dtype and got.shape == ref.shape and torch.equal(got, ref)
+        bk, bn = k3_rule(n, g, g, ci, co)
+        want = k3_instance(bk, bn, dequant, pool)
+        _, prof = device_profile(torch, lambda: [conv3x3_int8(x, tap, pool=pool)
+                                                 for _ in range(3)],
+                                 expect=("conv3x3_int8_kernel", 3))
+        traced = k3_instances(prof)
+        dev_us, dev_n = device_us(prof, "conv3x3_int8_kernel")
+        ops = 2 * n * g * g * 9 * ci * co
+        nbytes = n * g * g * ci + co * 9 * ci + ref.numel() * (4 if dequant else 1) \
+            + 4 * co * (3 if dequant else 2)
+        bound = max(ops / INT8_OPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        row = dict(layer=name, shape=[n, g, g, ci, co],
+                   epilogue="dequant" if dequant else "requant, 2x2 max-pool" if pool
+                   else "requant", bitwise_equal=equal, bk=bk, bn=bn,
+                   bn_b8=k3_rule(B, g, g, ci, co)[1], traced_instances=traced,
+                   device_us=dev_us / dev_n if dev_n else None, bound_us=bound * 1e3,
+                   bound_by="operations" if ops / INT8_OPS >= nbytes / HBM_BYTES_PER_S
+                   else "bytes")
+        emit("K3_b128", **row)
+        summary["k3"].append(row)
+        step["device_ms"] += 2 * (dev_us / dev_n / 1e3 if dev_n else float("nan"))
+        step["bound_ms"] += 2 * bound
+        if not equal:
+            fail(f"K3 {name} at {row['shape']}: "
+                 f"{int((got != ref).sum()) if got.shape == ref.shape else 'all'} of "
+                 f"{ref.numel()} outputs differ from plain")
+        if set(traced) - {want}:
+            fail(f"K3 {name} at {row['shape']}: traced instantiations {traced}, the "
+                 f"launcher's rule gives {want}")
+        del x, w, got, ref
+    bn_changed = [r["layer"] for r in summary["k3"] if r["bn"] != r["bn_b8"]]
+    summary["k3_turbo_step"] = dict(step, batch=n, launches=2 * len(TURBO_INT8_LAYERS))
+    summary["k3_bn_changed_from_b8"] = bn_changed
+    emit("kernels_b128", batch=n,
+         k1_shapes=[r["shape"] for r in summary["k1"]],
+         k2_tile_side={f"{r['shape'][1]}x{r['shape'][2]} iters {r['iters']}":
+                       [r["tile_side_b8"], r["tile_side"]] for r in summary["k2"]},
+         k3_block_n={r["layer"]: [r["bn_b8"], r["bn"]] for r in summary["k3"]},
+         k3_bn_changed_from_b8=bn_changed, k3_turbo_step=summary["k3_turbo_step"],
+         note="tile sides and BN as [B=8, B=128]")
+    torch.cuda.empty_cache()
+    return summary
+
+
+def clip_b128_phase(torch, cuda, bench) -> dict:
+    """``run_clip`` at BENCH_B x T under each preset: timed BENCH_RUNS times
+    after a warm-up, exact launches in every clip, the device busy time of
+    a step over a whole clip, peak memory; the rows of one seed within
+    BENCH_ROW_TOL; rows 0-7 against the same streams at B=8 on the card
+    within B8_TOL, with the first step's gap per stage; production's
+    streams 0-1 against the CPU. Returns, per preset, its pipeline, the
+    clip's outputs (on the host), the B=8 clip's heatmaps, and the launch
+    counts."""
+    from gaze_tpu_torch.evaluation.metrics import aae, auc_judd
+    from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
+
+    seqs, frames, gaze_gt, fixsac = bench
+    groups = BENCH_B // BENCH_G
+    out = {}
+    for name in BENCH_PRESETS:
+        bp = bench_pipeline(torch, name, seqs)
+        pipe, cfg, per_step = bp["pipe"], bp["cfg"], bp["per_step"]
+        expect = {k: v * T for k, v in per_step.items()}
+        run_clip(pipe, frames[:, :2], fixsac[:, :2])   # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, hm, gz = [], None, None
+        for _ in range(BENCH_RUNS):
+            cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            h, g = run_clip(pipe, frames, fixsac)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if launch_counts(cuda) != expect:
+                fail(f"clip_b128 {name}: kernel launches {launch_counts(cuda)}, expected {expect}")
+            if hm is None:
+                hm, gz = h, g
+            del h, g
+        peak = torch.cuda.max_memory_allocated()
+        if tuple(hm.shape) != (BENCH_B, T, SIZE, SIZE) or tuple(gz.shape) != (BENCH_B, T, 2):
+            fail(f"clip_b128 {name}: shapes {tuple(hm.shape)}, {tuple(gz.shape)}")
+        if not bool(torch.isfinite(hm).all()) or not bool(torch.isfinite(gz).all()):
+            fail(f"clip_b128 {name}: non-finite outputs")
+        if float(hm.min()) < 0 or float(hm.max()) > 1 or float(gz.min()) < 0 \
+                or float(gz.max()) > SIZE - 1:
+            fail(f"clip_b128 {name}: heatmap outside [0, 1] or gaze outside the image")
+        # check 1: the rows of one seed
+        rows_hm = hm.view(groups, BENCH_G, T, SIZE, SIZE)
+        row_diff = float((rows_hm - rows_hm[:1]).abs().max())
+        rows_gz = gz.view(groups, BENCH_G, T, 2)
+        row_gaze_equal = bool((rows_gz == rows_gz[:1]).all())
+        # check 2: the same streams at B=8, and where the first step's
+        # outputs part (the stages of GazePipeline.step)
+        hm8, gz8 = run_clip(pipe, frames[:B], fixsac[:B])
+        hm8, gz8 = hm8.float().cpu(), gz8.cpu()
+        hm_c8, gz_c8 = hm[:B].float().cpu(), gz[:B].cpu()
+        b8_diff = float((hm_c8 - hm8).abs().max())
+        b8_ties, b8_mismatched = near_ties(hm8, gz8, gz_c8, max(NEAR_TIE, 2 * b8_diff))
+        stages = {}
+        with torch.inference_mode():
+            for n in (BENCH_B, B):
+                dev_frames = torch.from_numpy(frames[:n, :2]).to(pipe.device)
+                rgb_in, flow_in = pipe.preprocess_pair(dev_frames[:, 0], dev_frames[:, 1])
+                sal, _ = pipe.sp_forward(rgb_in, flow_in)
+                stages[n] = {"rgb_in": rgb_in[:B], "flow_in": flow_in[:B], "saliency": sal[:B]}
+        b8_stage_diff = {k: float((v.float() - stages[B][k].float()).abs().max())
+                         for k, v in stages[BENCH_B].items()}
+        b8_stage_diff["heatmap"] = float((hm_c8[:, 0] - hm8[:, 0]).abs().max())
+        del stages, dev_frames, rgb_in, flow_in, sal
+        b8_tol, bf16_effect = B8_TOL[name], None
+        if b8_tol is None:   # the bf16 rounding's own effect: the weights in float32
+            f32 = GazePipeline(cfg, dtype=torch.float32, seed=0)
+            hm_f32 = run_clip(f32, frames[:B], fixsac[:B])[0].float().cpu()
+            bf16_effect = float((hm8 - hm_f32).abs().max())
+            b8_tol = BF16_BAND_FACTOR * bf16_effect
+            del f32, hm_f32
+        # a step's device busy time over one whole clip; the K3
+        # instantiations of the main path
+        _, prof = device_profile(torch, lambda: run_clip(pipe, frames, fixsac),
+                                 expect=("warp3_kernel", per_step["warp3"] * T))
+        busy = busy_ms(prof) / T
+        traced = {k: device_us(prof, part)[1] / T for k, part in (
+            ("warp3", "warp3_kernel"), ("tvl1_pd", "pd_iterations_kernel"),
+            ("conv3x3_int8", "conv3x3_int8_kernel"))}
+        instances = {k: v / T for k, v in k3_instances(prof).items()}
+        top = [{"name": k[:90], "ms_per_step": v[0] / 1e3 / T, "launches_per_step": v[1] / T}
+               for k, v in sorted(prof.items(), key=lambda kv: -kv[1][0])[:8]]
+        wall = float(np.median(walls))
+        step_wall_ms = wall * 1e3 / T
+        row = dict(preset=name, batch=BENCH_B, frames=T, size=SIZE, dtype=str(bp["dtype"]),
+                   flow_grid=int(round(SIZE * cfg.tvl1.flow_scale)),
+                   tvl1_warps=cfg.tvl1.warps, tvl1_iters=cfg.tvl1.iters,
+                   int8_streams=bp["qsp"] is not None, calibration_s=bp["calibration_s"],
+                   frames_per_s=BENCH_B * T / wall,
+                   frames_per_s_runs=[BENCH_B * T / w for w in walls], wall_s=wall,
+                   step_wall_ms=step_wall_ms, step_device_busy_ms=busy,
+                   device_idle_share=1 - busy / step_wall_ms, peak_mem_bytes=peak,
+                   launches=expect, launches_per_step=per_step,
+                   profiler_launches_per_step=traced, trace_complete=traced == per_step,
+                   k3_instances_per_step=instances,
+                   device_kernels_per_step=kernel_count(prof) / T, top_kernels=top,
+                   same_seed_rows_max_diff=row_diff, same_seed_rows_gaze_equal=row_gaze_equal,
+                   same_seed_rows_tol=BENCH_ROW_TOL, b8_max_diff=b8_diff, b8_tol=b8_tol,
+                   b8_near_tie_frames=b8_ties, b8_first_step_max_diff=b8_stage_diff,
+                   bf16_vs_float32_max_diff=bf16_effect)
+        checks = []
+        # the trace corroborates the counters: it may drop a launch (the
+        # card's profiler does), never add one, and each K3 launch it holds
+        # is the instantiation the launcher's rule picks for its layer
+        rule = k3_step_instances(BENCH_B) if bp["qsp"] is not None else {}
+        if any(v > per_step[k] for k, v in traced.items()):
+            checks.append(f"the profiler counts {traced} launches a step, the counters {per_step}")
+        if set(instances) - set(rule) or (traced == per_step and instances != rule):
+            checks.append(f"K3 instantiations a step {instances}, the launcher's rule gives {rule}")
+        if not (row_diff <= BENCH_ROW_TOL and row_gaze_equal):
+            checks.append(f"rows of one seed differ: heatmaps by {row_diff} (tol "
+                          f"{BENCH_ROW_TOL}), gaze equal {row_gaze_equal}")
+        if b8_mismatched or not b8_diff <= b8_tol:
+            checks.append(f"rows 0-{B - 1} differ from the B={B} clip: heatmaps by {b8_diff} "
+                          f"(tol {b8_tol}), gaze at {b8_mismatched}")
+        if name == "production":
+            # check 3: streams 0-1 against the CPU at B=2, same weights
+            cpu = GazePipeline(cfg, dtype=bp["dtype"], device="cpu")
+            cpu.load_state_dicts(pipe.state_dicts())
+            nb, nt = BENCH_CPU_B, BENCH_CPU_T
+            t0 = time.perf_counter()
+            hm_c, gz_c = run_clip(cpu, frames[:nb, :nt + 1], fixsac[:nb, :nt + 1])
+            cpu_s = time.perf_counter() - t0
+            hm_g, gz_g = hm[:nb, :nt].float().cpu(), gz[:nb, :nt].cpu()
+            cpu_diff = float((hm_g - hm_c).abs().max())
+            ties, mismatched, tie = gaze_vs_cpu(hm_g, gz_g, hm_c, gz_c)
+            sums = []
+            for b in range(nb):
+                gt = torch.from_numpy(gaze_gt[b, 1:nt + 1])
+                d_aae = abs(float(aae(hm_g[b], gt, cfg.camera).sum())
+                            - float(aae(hm_c[b], gt, cfg.camera).sum()))
+                d_auc = abs(float(auc_judd(hm_g[b], gt).sum()) - float(auc_judd(hm_c[b], gt).sum()))
+                aae_band, auc_band, _, _, _ = card_vs_cpu_bands(
+                    torch, cfg, hm_g[b:b + 1], gz_g[b:b + 1], hm_c[b:b + 1], gz_c[b:b + 1],
+                    gaze_gt[b, :nt + 1], np.ones(nt + 1, np.float32))
+                sums.append(dict(aae_sum_diff=d_aae, aae_band=aae_band, auc_sum_diff=d_auc,
+                                 auc_band=auc_band))
+            row.update(cpu_batch=nb, cpu_frames=nt, cpu_s=cpu_s, cpu_heatmap_max_diff=cpu_diff,
+                       cpu_heatmap_tol=b8_tol, cpu_near_tie_frames=ties,
+                       cpu_near_tie_threshold=tie, cpu_metric_sums=sums)
+            if mismatched or not cpu_diff <= b8_tol:
+                checks.append(f"streams 0-1 differ from the CPU: heatmaps by {cpu_diff} (tol "
+                              f"{b8_tol}), gaze at {mismatched}")
+            if not all(s["aae_sum_diff"] <= s["aae_band"] and s["auc_sum_diff"] <= s["auc_band"]
+                       for s in sums):
+                checks.append(f"AAE or AUC sums outside card_vs_cpu_bands: {sums}")
+            del cpu
+        emit("clip_b128", **row)
+        if checks:
+            fail(f"clip_b128 {name}: " + "; ".join(checks))
+        out[name] = dict(bp=bp, hm=hm.float().cpu(), gz=gz.cpu(), hm8=hm8, launches=expect)
+        del hm, gz, rows_hm, prof
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_b128_phase(torch, cuda, bench, clips) -> dict:
+    """A StreamServer of BENCH_B slots, all attached, under turbo and
+    production: T + 1 submit() ticks with the clip's fixation bits and the
+    heatmaps kept, then flush(), held to ``run_clip`` at B=128 within
+    SERVE_CLIP_TOL; then a server as bench.py --mode serve runs it (online
+    I-DT, no maps; 2 submits to warm it, BENCH_RUNS x T timed, flush()).
+    Returns the launch counts of each timed run."""
+    from gaze_tpu_torch.serve import StreamServer
+
+    _, frames, _, fixsac = bench
+    ticks = [np.ascontiguousarray(frames[:, t]) for t in range(T)]
+    launches = {}
+    for name in ("turbo", "production"):
+        bp = clips[name]["bp"]
+        per_tick = bp["per_step"]
+        weights = bp["pipe"].state_dicts()
+
+        def server(**kw):
+            srv = StreamServer(bp["cfg"], weights, BENCH_B, dtype=bp["dtype"],
+                               quant_sp=bp["qsp"], **kw)
+            for i in range(BENCH_B):
+                srv.attach(i)
+            return srv
+
+        srv = server(keep_heatmaps=True)
+        cuda.reset_launch_counts()
+        results = []
+        for t in range(T + 1):
+            r = srv.submit(frames[:, t], fixsac[:, t])
+            if (r is None) != (t == 0):
+                fail(f"serve_b128 {name}: submit {t} returned {'no ' if r is None else ''}result")
+            if r is not None:
+                results.append(r)
+        results.append(srv.flush())
+        checked_launches = launch_counts(cuda)
+        del srv
+        want = {k: v * (T + 1) for k, v in per_tick.items()}
+        if checked_launches != want:
+            fail(f"serve_b128 {name}: kernel launches {checked_launches}, expected {want}")
+        if not (results[0]["gaze"] == -1).all():
+            fail(f"serve_b128 {name}: the first frame's gaze is not the (-1, -1) sentinel")
+        hm_s = torch.from_numpy(np.stack([r["heatmap"] for r in results[1:]], axis=1))
+        gz_s = torch.from_numpy(np.stack([r["gaze"] for r in results[1:]], axis=1))
+        del results
+        ref_hm, ref_gz = clips[name]["hm"], clips[name]["gz"]
+        diff = float((hm_s - ref_hm).abs().max())
+        ties, mismatched = near_ties(ref_hm, ref_gz, gz_s, max(NEAR_TIE, 2 * diff))
+        del hm_s
+
+        srv = server()    # as bench.py --mode serve: I-DT fixations, no maps
+        srv.submit(ticks[0])
+        srv.submit(ticks[1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        lat, periods = [], []
+        for _ in range(BENCH_RUNS):
+            t0 = time.perf_counter()
+            for t in range(T):
+                s0 = time.perf_counter()
+                srv.submit(ticks[t])
+                lat.append((time.perf_counter() - s0) * 1e3)
+            periods.append((time.perf_counter() - t0) / T)
+        srv.flush()
+        torch.cuda.synchronize()
+        n_ticks = BENCH_RUNS * T + 1
+        launches[name] = launch_counts(cuda)
+        peak = torch.cuda.max_memory_allocated()
+        _, prof = device_profile(torch, lambda: [srv.tick(ticks[t]) for t in range(3)],
+                                 expect=("warp3_kernel", 3 * per_tick["warp3"]))
+        busy = busy_ms(prof) / 3
+        del srv
+        period_ms = float(np.median(periods)) * 1e3
+        emit("serve_b128", preset=name, streams=BENCH_B, attached=BENCH_B,
+             fixation_source="idt", timed_submits=BENCH_RUNS * T, ticks_counted=n_ticks,
+             stream_frames_per_s=BENCH_B / (period_ms / 1e3),
+             stream_frames_per_s_runs=[BENCH_B / p for p in periods], tick_period_ms=period_ms,
+             tick_ms_p50=float(np.percentile(lat, 50)), tick_ms_p90=float(np.percentile(lat, 90)),
+             tick_device_busy_ms=busy, device_idle_share=1 - busy / period_ms,
+             peak_mem_bytes=peak, launches=launches[name], launches_per_tick=per_tick,
+             checked_ticks=T + 1, checked_launches=checked_launches,
+             vs_run_clip_max_diff=diff, vs_run_clip_tol=SERVE_CLIP_TOL,
+             vs_run_clip_near_tie_frames=ties)
+        if launches[name] != {k: v * n_ticks for k, v in per_tick.items()}:
+            fail(f"serve_b128 {name}: the timed run launched {launches[name]}, expected "
+                 f"{n_ticks} x {per_tick}")
+        if mismatched or not diff <= SERVE_CLIP_TOL:
+            fail(f"serve_b128 {name}: the server differs from run_clip: heatmaps by {diff} "
+                 f"(tol {SERVE_CLIP_TOL}), gaze at {mismatched}")
+        torch.cuda.empty_cache()
+    return launches
+
+
+def train_b128_phase(torch, cuda) -> dict:
+    """The production SP train step at BENCH_B (bf16, half-grid flow, remat
+    "none") on train_sp's 8-row batch repeated BENCH_B / TRAIN_B times,
+    against the step on the 8 rows from the same state: the loss, the
+    applied gradient and the new BatchNorm statistics within their bands;
+    then BENCH_RUNS timed steps (exact K1/K2 launches each), a profiled
+    one, peak memory. A batch that does not fit fails the phase, after the
+    largest batch that fits and its peak are found. Returns the launches
+    of the timed steps."""
+    from gaze_tpu_torch.core.config import parity_config, preset_config
+    from gaze_tpu_torch.models.pipeline import GazePipeline
+    from gaze_tpu_torch.train.common import make_optimizer, make_state
+    from gaze_tpu_torch.train.sp import create_sp_state, make_sp_train_step
+
+    pcfg = dataclasses.replace(preset_config("production"), train=dataclasses.replace(
+        parity_config().train, batch_size=BENCH_B, learning_rate=TRAIN_LR))
+    per_step = flow_launches(pcfg, 1)
+    batch8 = sp_batches(pcfg, TRAIN_B, 1)[0]
+
+    def repeated(n):
+        return {k: np.concatenate([v] * (n // TRAIN_B)) for k, v in batch8.items()}
+
+    pipe = GazePipeline(pcfg, dtype=torch.bfloat16, seed=0)
+    create_sp_state(pipe)
+    init = {k: v.detach().clone() for k, v in pipe.sp.state_dict().items()}
+    step = make_sp_train_step(pipe)
+
+    def fresh():
+        pipe.sp.load_state_dict(init)
+        return make_state(pipe.sp, make_optimizer(pcfg.train))
+
+    def first_step(n):
+        grads = []
+        state = capture_grads(fresh(), grads)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        state, m = step(state, repeated(n))
+        torch.cuda.synchronize()
+        if launch_counts(cuda) != per_step:
+            fail(f"train_b128: the step at B={n} launched {launch_counts(cuda)}, "
+                 f"expected {per_step}")
+        return state, dict(loss=float(m["loss"]), grads=grads[0],
+                           stats={k: v.detach().clone() for k, v in state.batch_stats().items()},
+                           peak=torch.cuda.max_memory_allocated())
+
+    def fits(n):
+        """The step's first-step record at batch n, or None where it runs
+        out of device memory (the failed step's tensors freed)."""
+        try:
+            return first_step(n)
+        except torch.cuda.OutOfMemoryError:
+            pass
+        torch.cuda.empty_cache()
+        return None
+
+    _, small = first_step(TRAIN_B)
+    run = fits(BENCH_B)
+    if run is None:
+        n, largest = BENCH_B // 2, None
+        while n >= TRAIN_B and largest is None:
+            largest = fits(n)
+            n = n if largest is not None else n // 2
+        fail(f"train_b128: the production SP step at B={BENCH_B} does not fit in the card's "
+             f"{torch.cuda.get_device_properties(0).total_memory} bytes; the largest batch "
+             f"that fits is " + (f"B={n}, peak {largest[1]['peak']} bytes" if largest
+                                 else f"below B={TRAIN_B}"))
+    state, big = run
+    names = state.param_names
+    loss_rel = abs(big["loss"] - small["loss"]) / abs(small["loss"])
+    grads = grad_compare(big["grads"], small["grads"], names)
+    stats_rel = stats_rel_err(big["stats"], small["stats"])
+    del small, big["grads"]
+
+    walls, step_launches = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(BENCH_RUNS):
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, repeated(BENCH_B))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        step_launches.append(launch_counts(cuda))
+    peak = max(torch.cuda.max_memory_allocated(), big["peak"])
+    _, prof = device_profile(torch, lambda: step(state, repeated(BENCH_B)),
+                             expect=("warp3_kernel", per_step["warp3"]))
+    busy = busy_ms(prof)
+    top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:6]
+    wall_ms = float(np.median(walls)) * 1e3
+    launches = {k: sum(c[k] for c in step_launches) for k in per_step}
+    emit("train_b128", preset="production", batch=BENCH_B, size=SIZE, remat=pcfg.sp.remat,
+         batch_rows=f"train_sp's {TRAIN_B}-row batch x {BENCH_B // TRAIN_B}",
+         steps_timed=BENCH_RUNS, step_wall_ms=[w * 1e3 for w in walls],
+         step_wall_ms_median=wall_ms, step_device_busy_ms=busy,
+         device_idle_share=1 - busy / wall_ms, samples_per_s=BENCH_B / (wall_ms / 1e3),
+         peak_mem_bytes=peak, first_step_peak_mem_bytes=big["peak"],
+         launches_per_step=per_step, launches=launches,
+         top_kernels=[{"name": k[:90], "ms": v[0] / 1e3, "launches": v[1]} for k, v in top],
+         vs_b8={"loss": big["loss"], "loss_rel_err": loss_rel, "grads": grads,
+                "batch_stats_rel_err": stats_rel,
+                "tol": {"loss_rel": TRAIN_B128_LOSS_RTOL, "grad_rel": TRAIN_B128_GRAD_RTOL,
+                        "batch_stats_rel": TRAIN_B128_STATS_RTOL}})
+    for n, got in enumerate(step_launches):
+        if got != per_step:
+            fail(f"train_b128: timed step {n} launched {got}, expected {per_step}")
+    if not (loss_rel <= TRAIN_B128_LOSS_RTOL and grads["model_rel_l2"] <= TRAIN_B128_GRAD_RTOL
+            and stats_rel <= TRAIN_B128_STATS_RTOL):
+        fail(f"train_b128: the B={BENCH_B} step differs from the B={TRAIN_B} step outside the "
+             f"bands: loss {loss_rel}, gradients {grads['model_rel_l2']}, statistics {stats_rel}")
+    del state, pipe, prof
+    torch.cuda.empty_cache()
+    return launches
+
+
+def options_phase(torch, cuda, bench, clips) -> dict:
+    """``run_clip`` at B=8 under parity with each of BENCH_OPTIONS, exact
+    launches, held to the CPU on streams 0-1 within CPU_HEATMAP_TOL (gaze
+    equal or a near tie) and against the default options on the same
+    streams (the option must change the output); then a turbo StreamServer
+    with the pixelshuffle decoder, exact launches a tick, held to
+    ``run_clip`` of the same pipeline within SERVE_CLIP_TOL. Returns the
+    launch counts by path."""
+    from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
+    from gaze_tpu_torch.serve import StreamServer
+
+    seqs, frames, _, fixsac = bench
+    f8, x8 = frames[:B], fixsac[:B]
+    nb, nt = BENCH_CPU_B, BENCH_CPU_T
+    launches = {}
+    for name, kw in BENCH_OPTIONS:
+        bp = bench_pipeline(torch, "parity", seqs, **kw)
+        pipe = bp["pipe"]
+        expect = {k: v * T for k, v in bp["per_step"].items()}
+        run_clip(pipe, f8[:, :2], x8[:, :2])   # warm-up
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        hm, gz = run_clip(pipe, f8, x8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = launch_counts(cuda)
+        if launches[name] != expect:
+            fail(f"options {name}: kernel launches {launches[name]}, expected {expect}")
+        hm, gz = hm.float().cpu(), gz.cpu()
+        if not bool(torch.isfinite(hm).all()) or float(hm.min()) < 0 or float(hm.max()) > 1:
+            fail(f"options {name}: heatmaps non-finite or outside [0, 1]")
+        cpu = GazePipeline(bp["cfg"], device="cpu", **kw)
+        cpu.load_state_dicts(pipe.state_dicts())
+        t0 = time.perf_counter()
+        hm_c, gz_c = run_clip(cpu, f8[:nb, :nt + 1], x8[:nb, :nt + 1])
+        cpu_s = time.perf_counter() - t0
+        diff = float((hm[:nb, :nt] - hm_c).abs().max())
+        ties, mismatched, tie = gaze_vs_cpu(hm[:nb, :nt], gz[:nb, :nt], hm_c, gz_c)
+        base = clips.get("parity", {}).get("hm8")
+        teeth = None if base is None else float((hm - base).abs().max())
+        emit("options", option=name, preset="parity", batch=B, frames=T, size=SIZE, wall_s=wall,
+             frames_per_s=B * T / wall, launches=launches[name], cpu_batch=nb, cpu_frames=nt,
+             cpu_s=cpu_s, cpu_heatmap_max_diff=diff, cpu_heatmap_tol=CPU_HEATMAP_TOL,
+             cpu_near_tie_frames=ties, cpu_near_tie_threshold=tie,
+             vs_default_options_max_diff=teeth)
+        if mismatched or not diff <= CPU_HEATMAP_TOL:
+            fail(f"options {name}: the card differs from the CPU: heatmaps by {diff} (tol "
+                 f"{CPU_HEATMAP_TOL}), gaze at {mismatched}")
+        if teeth is not None and not teeth > 0:
+            fail(f"options {name}: the option changes nothing against the default clip")
+        del pipe, cpu, bp
+
+    turbo = clips.get("turbo", {}).get("bp") or bench_pipeline(torch, "turbo", seqs)
+    cfg, dtype, qsp = turbo["cfg"], turbo["dtype"], turbo["qsp"]
+    pipe = GazePipeline(cfg, dtype=dtype, seed=0, quant_sp=qsp, decoder_impl="pixelshuffle")
+    run_clip(pipe, f8[:, :2], x8[:, :2])   # warm-up
+    hm, gz = (x.float().cpu() for x in run_clip(pipe, f8, x8))
+    srv = StreamServer(cfg, pipe.state_dicts(), B, dtype=dtype, quant_sp=qsp,
+                       decoder_impl="pixelshuffle", keep_heatmaps=True)
+    for i in range(B):
+        srv.attach(i)
+    cuda.reset_launch_counts()
+    srv.tick(f8[:, 0], x8[:, 0])
+    outs = [srv.tick(f8[:, t], x8[:, t]) for t in range(1, T + 1)]
+    launches["serve_pixelshuffle"] = launch_counts(cuda)
+    del srv, pipe
+    want = {k: v * (T + 1) for k, v in turbo["per_step"].items()}
+    srv_hm = torch.from_numpy(np.stack([o["heatmap"] for o in outs], axis=1))
+    srv_gz = torch.from_numpy(np.stack([o["gaze"] for o in outs], axis=1))
+    diff = float((srv_hm - hm).abs().max())
+    ties, mismatched = near_ties(hm, gz, srv_gz, max(NEAR_TIE, 2 * diff))
+    base = clips.get("turbo", {}).get("hm8")
+    teeth = None if base is None else float((hm - base).abs().max())
+    emit("options", option="pixelshuffle", preset="turbo", server_slots=B, ticks=T + 1,
+         launches=launches["serve_pixelshuffle"], launches_per_tick=turbo["per_step"],
+         vs_run_clip_max_diff=diff, vs_run_clip_tol=SERVE_CLIP_TOL,
+         vs_run_clip_near_tie_frames=ties, vs_deconv_max_diff=teeth)
+    if launches["serve_pixelshuffle"] != want:
+        fail(f"options: the pixelshuffle server launched {launches['serve_pixelshuffle']}, "
+             f"expected {want}")
+    if mismatched or not diff <= SERVE_CLIP_TOL:
+        fail(f"options: the pixelshuffle server differs from run_clip: heatmaps by {diff} "
+             f"(tol {SERVE_CLIP_TOL}), gaze at {mismatched}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+BENCH_PHASES = ("kernels_b128", "clip_b128", "serve_b128", "train_b128", "options")
+# The whole script runs these phases in a process of their own, started
+# after the command line phase: late in the long process, torch.profiler
+# traces came back without device events (every retry of a phase, on two
+# whole runs on an H100), while the same phases traced in a fresh process
+# every time. They take about 100 s there; the process is given this long.
+BENCH_TIMEOUT = 600
+
+
+def bench_configs_process(torch):
+    """The BENCH_PHASES in a process of their own (``--only``), started
+    after this process has handed its cached device memory back; their
+    lines go to this process's output. Returns what
+    ``bench_config_phases`` returned there, and its seconds by phase."""
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, os.path.abspath(__file__), "--only", ",".join(BENCH_PHASES)]
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = p.communicate(timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        out, err = p.communicate()
+        err += f"\nchip_smoke: the benchmark configurations' process ran past {BENCH_TIMEOUT} s"
+    res, laps = None, {}
+    for line in out.splitlines():
+        d = json.loads(line) if line.startswith("{") else {}
+        if d.get("phase") == "bench_configs":
+            res = d
+        elif d.get("phase") == "timeline":
+            laps = d["seconds_by_phase"]
+        elif d.get("phase") != "gpu":
+            print(line, flush=True)
+    sys.stderr.write("".join(line + "\n" for line in err.splitlines()
+                             if not line.startswith("chip_smoke: ran ")))
+    if p.returncode != 0 or res is None:
+        fail(f"the benchmark configurations' process exited {p.returncode}")
+    return res, laps
+
+
+def bench_config_phases(torch, dev, cuda, lap, only=BENCH_PHASES) -> dict:
+    """The phases of the JAX package's benchmark configurations, those in
+    ``only`` (serve_b128 runs clip_b128 first). Returns the K1/K2/K3
+    launches by path and by training path, and the kernels' B=128 summary."""
+    res = {"paths": {}, "training": {}, "b128": None}
+    if "kernels_b128" in only:
+        lap("kernels_b128")
+        res["b128"] = kernels_b128_phase(torch, dev)
+    bench, clips = None, {}
+    if "clip_b128" in only or "serve_b128" in only:
+        lap("clip_b128")
+        bench = bench_streams(T + 1)
+        clips = clip_b128_phase(torch, cuda, bench)
+        res["paths"].update({f"clip_b128_{k}": v["launches"] for k, v in clips.items()})
+    if "serve_b128" in only:
+        lap("serve_b128")
+        res["paths"].update({f"serve_b128_{k}": v for k, v in
+                             serve_b128_phase(torch, cuda, bench, clips).items()})
+    for v in clips.values():   # the host copies of the B=128 maps
+        v.pop("hm", None)
+    if "train_b128" in only:
+        lap("train_b128")
+        res["training"]["train_b128"] = train_b128_phase(torch, cuda)
+    if "options" in only:
+        lap("options")
+        bench = bench or bench_streams(T + 1)
+        res["paths"].update({f"options_{k}": v for k, v in
+                             options_phase(torch, cuda, bench, clips).items()})
+    return res
+
+
 def k1_host_parts(torch, args, reps: int = 2000) -> dict:
     """Host µs per call of each part of K1's launch path, each part run
     ``reps`` times back to back on the host clock, and of the whole
@@ -3423,6 +4304,48 @@ def k1_host_parts(torch, args, reps: int = 2000) -> dict:
     return us
 
 
+def k1_args(torch, dev, rng, shape):
+    """K1's inputs (i1, u1, u2, i0) at ``shape`` (B, H, W): textures in
+    [0, 255], i0 a shifted copy of i1, displacements to +-40 px (past the
+    TPU kernel's +-16 clamp)."""
+    n, H, W = shape
+    tex = textures(rng, n, H, W)
+    i1 = torch.from_numpy(tex() * 255.0).to(dev)
+    i0 = torch.from_numpy(tex(0.7, -0.4) * 255.0).to(dev)
+    yy, xx = np.mgrid[0:H, 0:W]
+    u1 = 39.0 * np.sin(xx / 23.0 + rng.uniform(0, 3)) + rng.uniform(-1, 1, shape)
+    u2 = 39.0 * np.cos(yy / 19.0 + rng.uniform(0, 3)) + rng.uniform(-1, 1, shape)
+    u1 = torch.from_numpy(u1.astype(np.float32)).to(dev)
+    u2 = torch.from_numpy(u2.astype(np.float32)).to(dev)
+    return i1, u1, u2, i0
+
+
+def k2_args(torch, dev, rng, shape):
+    """K2's inputs (u1, u2, p11, p12, p21, p22, i1wx, i1wy, grad, rho_c) at
+    ``shape`` (B, H, W): I1's gradients from a texture, the duals in
+    [-0.5, 0.5] with the x-duals zero in the last column and the y-duals
+    in the last row, as the solver keeps them."""
+    from gaze_tpu_torch.ops.image import central_gradient
+
+    n, H, W = shape
+    tex = textures(rng, n, H, W)
+    i1 = torch.from_numpy(tex() * 255.0).to(dev)
+    i1wx, i1wy = (g.contiguous() for g in central_gradient(i1))
+    grad = i1wx * i1wx + i1wy * i1wy
+    rho_c = torch.from_numpy(rng.uniform(-40, 40, shape).astype(np.float32)).to(dev)
+    u = [torch.from_numpy(rng.uniform(-2, 2, shape).astype(np.float32)).to(dev)
+         for _ in range(2)]
+    p = []
+    for j in range(4):
+        q = rng.uniform(-0.5, 0.5, shape).astype(np.float32)
+        if j % 2 == 0:
+            q[:, :, -1] = 0   # x-duals zero in the last column
+        else:
+            q[:, -1, :] = 0   # y-duals zero in the last row
+        p.append(torch.from_numpy(q).to(dev))
+    return (*u, *p, i1wx, i1wy, grad, rho_c)
+
+
 def k1_phase(torch, dev, rng) -> dict:
     """K1 at the solver's shapes and at edge shapes: bit-equal to its plain
     version; the solver's call (``warp3_into`` the level's buffer) by CUDA
@@ -3445,16 +4368,8 @@ def k1_phase(torch, dev, rng) -> dict:
         n, H, W = shape
         if H < 4 or W < 4:
             rng = edge_rng
-        tex = textures(rng, n, H, W)
-        i1 = torch.from_numpy(tex() * 255.0).to(dev)
-        i0 = torch.from_numpy(tex(0.7, -0.4) * 255.0).to(dev)
-        yy, xx = np.mgrid[0:H, 0:W]
-        # displacements to +-40 px, past the TPU kernel's +-16 clamp
-        u1 = 39.0 * np.sin(xx / 23.0 + rng.uniform(0, 3)) + rng.uniform(-1, 1, shape)
-        u2 = 39.0 * np.cos(yy / 19.0 + rng.uniform(0, 3)) + rng.uniform(-1, 1, shape)
-        u1 = torch.from_numpy(u1.astype(np.float32)).to(dev)
-        u2 = torch.from_numpy(u2.astype(np.float32)).to(dev)
-        args = (i1, u1, u2, i0)
+        args = k1_args(torch, dev, rng, shape)
+        i1, u1, u2, i0 = args
         got = warp3(*args)
         ref = warp3_plain(*args)
         torch.cuda.synchronize()
@@ -3525,7 +4440,9 @@ def k1_phase(torch, dev, rng) -> dict:
     return summary
 
 
-def main() -> None:
+def main(only=None) -> None:
+    """The whole smoke test; with ``only`` (names of BENCH_PHASES) just
+    those phases, ending without the result line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3535,7 +4452,6 @@ def main() -> None:
         from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
         from gaze_tpu_torch.ops import cuda
         from gaze_tpu_torch.ops.cuda.tvl1_pd import pd_iterations
-        from gaze_tpu_torch.ops.image import central_gradient
         from gaze_tpu_torch.ops.tvl1 import _pyramid_shapes, tvl1_flow
     except ImportError as e:
         fail(f"cannot import gaze_tpu_torch ({e}); run from the repository root")
@@ -3557,6 +4473,13 @@ def main() -> None:
     emit("gpu", nvidia_smi=smi, kind=kind, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s)
 
+    if only is not None:
+        emit("bench_configs", **bench_config_phases(torch, dev, cuda, lap, only))
+        lap("end")
+        emit("timeline", seconds_by_phase=laps, total_s=sum(laps.values()))
+        print(f"chip_smoke: ran {', '.join(only)} only: no result", file=sys.stderr)
+        return
+
     rng = np.random.default_rng(0)
     summary = {}
 
@@ -3573,22 +4496,7 @@ def main() -> None:
 
     for shape in [(B, 224, 224), (B, 112, 112), (B, 56, 56), (B, 28, 28), (2, 24, 40)]:
         n, H, W = shape
-        tex = textures(rng, n, H, W)
-        i1 = torch.from_numpy(tex() * 255.0).to(dev)
-        i1wx, i1wy = (g.contiguous() for g in central_gradient(i1))
-        grad = i1wx * i1wx + i1wy * i1wy
-        rho_c = torch.from_numpy(rng.uniform(-40, 40, shape).astype(np.float32)).to(dev)
-        u = [torch.from_numpy(rng.uniform(-2, 2, shape).astype(np.float32)).to(dev)
-             for _ in range(2)]
-        p = []
-        for j in range(4):
-            q = rng.uniform(-0.5, 0.5, shape).astype(np.float32)
-            if j % 2 == 0:
-                q[:, :, -1] = 0   # x-duals zero in the last column
-            else:
-                q[:, -1, :] = 0   # y-duals zero in the last row
-            p.append(torch.from_numpy(q).to(dev))
-        args = (*u, *p, i1wx, i1wy, grad, rho_c)
+        args = k2_args(torch, dev, rng, shape)
         # parity's 10 iterations and turbo's 5; both paths take one median
         # pass between warps (median_kernel 3), median_kernel 5 takes two
         for iters in (t1.iters, 5):
@@ -3836,8 +4744,17 @@ def main() -> None:
     if os.path.exists(data_dir):
         fail(f"data: {data_dir} was not removed")
 
-    # ------------------------------------------------------- kernels
+    # ------------------------------- the benchmark's configurations
+    lap("bench_configs_start")
+    bench, bench_laps = bench_configs_process(torch)
     lap("kernels_line")
+    for name in BENCH_PHASES:   # the process's start stays on its own lap
+        laps[name] = bench_laps[name]
+        laps["bench_configs_start"] -= laps[name]
+    training.update(bench["training"])
+    b128 = bench["b128"]
+
+    # ------------------------------------------------------- kernels
     emit("timeline", seconds_by_phase=laps, total_s=sum(laps.values()))
     sources = {"warp3": ("gaze_tpu_torch/csrc/warp.cu", "gaze_tpu/ops/pallas/warp.py:194"),
                "tvl1_pd": ("gaze_tpu_torch/csrc/tvl1_pd.cu",
@@ -3859,7 +4776,8 @@ def main() -> None:
                                           "tail": tail_launches[name],
                                           **{k: c[name] for k, c in dist_launches.items()},
                                           **{k: c[name] for k, c in data_launches.items()},
-                                          **{k: c[name] for k, c in cli_launches.items()}},
+                                          **{k: c[name] for k, c in cli_launches.items()},
+                                          **{k: c[name] for k, c in bench["paths"].items()}},
                      "training_launches": {path: c[name] for path, c in training.items()},
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                      "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
@@ -3870,13 +4788,22 @@ def main() -> None:
         if name == "warp3":
             rows[-1]["allocating_ms"] = s["allocating_ms"]
             rows[-1]["host_us_per_call"] = s["host_us_per_call"]
+            rows[-1]["b128"] = [{k: r[k] for k in ("shape", "bitwise_equal", "device_us",
+                                                   "bound_us")} for r in b128["k1"]]
         if name == "tvl1_pd":
             rows[-1]["bitwise_equal"] = s["bitwise_equal"]
             rows[-1]["dense_flow_by_level"] = [
                 {k: r[k] for k in ("shape", "iters", "median_passes", "ms", "device_ms",
                                    "bound_ms", "bitwise_equal")} for r in k2_levels]
+            rows[-1]["b128"] = [{k: r[k] for k in (
+                "shape", "iters", "median_passes", "bitwise_equal", "tile_side", "tile_side_b8",
+                "device_us", "bound_us")} for r in b128["k2"]]
         if name == "conv3x3_int8":
             rows[-1]["device_ms_in_turbo_clip"] = turbo["k3_device_ms_per_step"]
+            rows[-1]["b128"] = {"block_n_b8_b128": {r["layer"]: [r["bn_b8"], r["bn"]]
+                                                    for r in b128["k3"]},
+                                "bn_changed_from_b8": b128["k3_bn_changed_from_b8"],
+                                "turbo_step": b128["k3_turbo_step"]}
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3887,5 +4814,10 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-gloo-worker"]:
         dp_gloo_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
                        sys.argv[6])
+    elif sys.argv[1:2] == ["--only"]:
+        names = sys.argv[2].split(",")
+        if not set(names) <= set(BENCH_PHASES):
+            fail(f"--only takes names of {BENCH_PHASES}, got {names}")
+        main(names)
     else:
         main()
