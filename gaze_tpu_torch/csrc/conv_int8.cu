@@ -600,6 +600,15 @@ int launch_bk(bool wide, int epilogue, const void* x, const void* w, const float
   return launch<BK, 64, false, false>(x, w, a, c, bias, border, out, B, H, W, Ci, Co, s);
 }
 
+// The instantiation's (BK, BN) for a layer: BK the widest of 128, 64 and
+// 32 input channels that divides Ci; BN = 128 (twice the operations per
+// byte loaded) where that still gives every SM a tile, else 64.
+void pick_block(int B, int H, int W, int Ci, int Co, int& bk, int& bn) {
+  bk = Ci % 128 == 0 ? 128 : Ci % 64 == 0 ? 64 : 32;
+  const long long tiles = (long long)B * ((H + TILE_H - 1) / TILE_H) * ((W + TILE_W - 1) / TILE_W);
+  bn = Co % 128 == 0 && tiles * (Co / 128) >= 132 ? 128 : 64;
+}
+
 }  // namespace
 
 // x: (B, H, W, Ci) int8 NHWC; w: (Co, 3, 3, Ci) int8 OHWI; a, c and (for
@@ -620,18 +629,27 @@ extern "C" int conv3x3_int8_launch(const void* x, const void* w, const void* a, 
       (dequant && bias == nullptr) || (dequant && pool))
     return (int)cudaErrorInvalidValue;
   const int epilogue = dequant ? 1 : pool ? 2 : 0;
-  // BN = 128 (twice the operations per byte loaded) where that still
-  // gives every SM a tile, else 64.
-  const long long tiles = (long long)B * ((H + TILE_H - 1) / TILE_H) * ((W + TILE_W - 1) / TILE_W);
-  const bool wide = Co % 128 == 0 && tiles * (Co / 128) >= 132;
+  int bk, bn;
+  pick_block(B, H, W, Ci, Co, bk, bn);
+  const bool wide = bn == 128;
   const float* af = static_cast<const float*>(a);
   const float* cf = static_cast<const float*>(c);
   const float* bf = static_cast<const float*>(bias);
   const int* bt = static_cast<const int*>(border);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (Ci % 128 == 0)
+  if (bk == 128)
     return launch_bk<128>(wide, epilogue, x, w, af, cf, bf, bt, out, B, H, W, Ci, Co, s);
-  if (Ci % 64 == 0)
+  if (bk == 64)
     return launch_bk<64>(wide, epilogue, x, w, af, cf, bf, bt, out, B, H, W, Ci, Co, s);
   return launch_bk<32>(wide, epilogue, x, w, af, cf, bf, bt, out, B, H, W, Ci, Co, s);
+}
+
+// The (BK, BN) that conv3x3_int8_launch takes for a layer of this shape,
+// into bk and bn; launches nothing. Returns cudaErrorInvalidValue where
+// the launcher would refuse the shape, else 0.
+extern "C" int conv3x3_int8_block(int B, int H, int W, int Ci, int Co, int* bk, int* bn) {
+  if (Ci <= 0 || Ci % 32 != 0 || Co <= 0 || B <= 0 || H <= 0 || W <= 0 || !bk || !bn)
+    return (int)cudaErrorInvalidValue;
+  pick_block(B, H, W, Ci, Co, *bk, *bn);
+  return 0;
 }

@@ -339,3 +339,10 @@ extern "C" int tvl1_pd_launch(const float* u1, const float* u2, const float* p11
                                                                  median_passes, lt, taut, theta);
   return (int)cudaGetLastError();
 }
+
+// The tile side that tvl1_pd_launch takes for this shape and call;
+// launches nothing. Returns 0 where the launcher would refuse it.
+extern "C" int tvl1_pd_tile(int B, int H, int W, int iters, int median_passes) {
+  if (B <= 0 || H < 2 || W < 2 || iters < 0 || median_passes < 0 || median_passes > 2) return 0;
+  return pick_tile(B, H, W, iters + median_passes);
+}

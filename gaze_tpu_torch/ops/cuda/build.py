@@ -102,6 +102,16 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
+    def query(self, symbol: str, argtypes: Sequence):
+        """Another C entry point of the same library, one that launches
+        nothing (a launch choice the kernel's launcher makes); its calls
+        are not counted."""
+        self.load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
+
     def launch(self, *args) -> None:
         """Call the C entry point; it returns ``cudaGetLastError()``."""
         err = self.load()(*args)

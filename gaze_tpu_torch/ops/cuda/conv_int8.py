@@ -17,6 +17,9 @@ the design. The plain version is
 
 from __future__ import annotations
 
+import ctypes
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 
@@ -28,6 +31,21 @@ KERNEL = CudaKernel("conv_int8.cu", "conv3x3_int8_launch", [PTR] * 7 + [INT] * 8
 
 # The least K step of the kernel: 32 input channels, one wgmma k32.
 CI_STEP = 32
+
+
+def block_shape(B: int, H: int, W: int, ci: int, co: int) -> Tuple[int, int]:
+    """(BK, BN): the input channels per K step and the output channels
+    per tile of the K3 instantiation that a launch at this layer shape
+    takes (``ci`` after :func:`pad_channels`), by the launcher's own rule
+    (``csrc/conv_int8.cu``: ``pick_block``). Builds the kernel at first
+    use, as a launch does; launches nothing."""
+    bk, bn = ctypes.c_int(), ctypes.c_int()
+    pint = ctypes.POINTER(ctypes.c_int)
+    err = KERNEL.query("conv3x3_int8_block", [INT] * 5 + [pint, pint])(
+        B, H, W, ci, co, ctypes.byref(bk), ctypes.byref(bn))
+    if err != 0:
+        raise ValueError(f"K3 takes no launch at {(B, H, W, ci, co)}")
+    return bk.value, bn.value
 
 
 def pad_channels(tap: ConvTap) -> ConvTap:

@@ -33,6 +33,19 @@ MEDIAN_PASSES = (0, 1, 2)
 Carry = Tuple[torch.Tensor, ...]
 
 
+def tile_side(B: int, H: int, W: int, iters: int, median_passes: int) -> int:
+    """The side of the square tile that one K2 launch of ``iters``
+    iterations and ``median_passes`` medians at (B, H, W) takes, by the
+    launcher's own rule (``csrc/tvl1_pd.cu``: ``pick_tile``); its grid is
+    (ceil(W / side), ceil(H / side), B). Builds the kernel at first use,
+    as a launch does; launches nothing."""
+    side = KERNEL.query("tvl1_pd_tile", [INT] * 5)(B, H, W, iters, median_passes)
+    if side == 0:
+        raise ValueError(f"K2 takes no launch at {(B, H, W)}, iters={iters}, "
+                         f"median_passes={median_passes}")
+    return side
+
+
 def pd_iterations_plain(
     u1, u2, p11, p12, p21, p22, i1wx, i1wy, grad, rho_c,
     *, iters: int, tau: float, lambda_: float, theta: float,
