@@ -2469,6 +2469,7 @@ def videos_phase(torch, cuda, turbo, root: str, names):
     from gaze_tpu_torch.data.native_io import decode_batch
     from gaze_tpu_torch.evaluation import rollout
     from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
+    from gaze_tpu_torch.utils.profiling import recording
 
     pipe, cfg = turbo["pipe"], turbo["cfg"]
     recs = build_manifest(root, native_hw=DATA_HW).frames
@@ -2484,17 +2485,18 @@ def videos_phase(torch, cuda, turbo, root: str, names):
         per_chunk = {k: v * chunk_len for k, v in turbo["per_step"].items()}
         if flow:
             per_chunk.update(warp3=0, tvl1_pd=0)
-        waits = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cuda.reset_launch_counts()
         t0 = time.perf_counter()
-        with PerCall(cuda, rollout, "make_rollout_chunk_fn") as chunks:
+        with PerCall(cuda, rollout, "make_rollout_chunk_fn") as chunks, recording() as rec:
             res = rollout.rollout_eval_videos(pipe, recs, chunk_len=chunk_len,
                                               group_size=VIDEO_GROUP,
-                                              use_precomputed_flow=flow, decode_waits=waits)
+                                              use_precomputed_flow=flow)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        waits = [(s.end_ns - s.start_ns) / 1e9 for s in rec.spans
+                 if s.name == "rollout.decode_wait"]
         n_chunks = steps(chunk_len) // chunk_len
         runs[(flow, chunk_len)] = dict(
             results=res, seconds=wall, launches=launch_counts(cuda),
@@ -2503,6 +2505,9 @@ def videos_phase(torch, cuda, turbo, root: str, names):
             fail(f"videos flow={flow} chunk_len={chunk_len}: {len(chunks.calls)} chunks "
                  f"(expected {n_chunks}), launches per chunk {chunks.calls}, "
                  f"expected {per_chunk}")
+        if rec.dropped or len(waits) != n_chunks:
+            fail(f"videos flow={flow} chunk_len={chunk_len}: {len(waits)} decode waits "
+                 f"recorded (expected {n_chunks}), {rec.dropped} spans dropped")
     a8, a16, b8 = (runs[k] for k in ((False, VIDEO_CHUNKS[0]), (False, VIDEO_CHUNKS[1]),
                                      (True, VIDEO_CHUNKS[0])))
     if a8["results"] != a16["results"]:

@@ -31,7 +31,6 @@ The calls are collective: every rank makes the same ones.
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -43,6 +42,7 @@ from gaze_tpu_torch.data.gtea import FrameRecord, _decode_flow_images, _decode_i
 from gaze_tpu_torch.evaluation.metrics import aae, auc_judd
 from gaze_tpu_torch.models.pipeline import GazePipeline, StreamState
 from gaze_tpu_torch.parallel.mesh import Mesh, checked
+from gaze_tpu_torch.utils.profiling import span
 
 SCORE_KEYS = ("heatmap", "saliency", "attention")
 # The padding of a chunk's tail: frames and labels 0, flow images 128
@@ -241,7 +241,6 @@ def rollout_eval_videos(
     use_precomputed_flow: Optional[bool] = None,
     mesh: Optional[Mesh] = None,
     score_key: str = "heatmap",
-    decode_waits: Optional[List[float]] = None,
 ) -> Dict[str, Tuple[float, float, int]]:
     """Rollout-evaluate GTEA videos from their FrameRecord lists with the
     pipeline's weights, on its device.
@@ -259,8 +258,8 @@ def rollout_eval_videos(
 
     ``use_precomputed_flow``: None uses the flow images when every
     record has one; True uses them; False solves TV-L1 on the card.
-    ``decode_waits``: a list that receives, per chunk, the seconds this
-    thread waited for the chunk's decode and copy to be issued.
+    The span ``rollout.decode_wait`` (``utils/profiling.py``) covers, per
+    chunk, this thread's wait for the chunk's decode and copy to be issued.
 
     With a ``mesh``, ``group_size`` is rounded up to a multiple of its
     size, each rank decodes and rolls out only its block of each group's
@@ -312,10 +311,8 @@ def rollout_eval_videos(
         return staged, done
 
     def consume(fut):
-        t0 = time.perf_counter()
-        staged, done = fut.result()
-        if decode_waits is not None:
-            decode_waits.append(time.perf_counter() - t0)
+        with span("rollout.decode_wait"):
+            staged, done = fut.result()
         if done is not None:
             compute = torch.cuda.current_stream(dev)
             compute.wait_event(done)

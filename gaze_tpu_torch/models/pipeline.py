@@ -54,6 +54,7 @@ from gaze_tpu_torch.ops.preprocess import (
     to_float,
 )
 from gaze_tpu_torch.ops.tvl1 import tvl1_flow
+from gaze_tpu_torch.utils.profiling import count, span
 
 
 class StreamState(NamedTuple):
@@ -93,6 +94,11 @@ class GazePipeline:
         "pixelshuffle" (exact polyphase form) or "halfres" (the last
         block at half resolution, interleaved up); the last two fold
         BatchNorm and serve inference only (``models/decode_fast.py``).
+
+    Spans (``utils/profiling.py``, recorded only inside a
+    ``recording()``): each step's ``step.preprocess``, ``step.sp`` (over
+    ``sp.encode`` and ``sp.decode``) and ``step.attend``; ``run_clip``
+    adds ``clip.upload``.
     """
 
     def __init__(
@@ -232,28 +238,27 @@ class GazePipeline:
         features go through the fuse/decoder tail in ``dtype``; the tail
         is ``decoder_impl``'s, or, when ``quant_sp.tail`` is set, the int8
         tail (``models/quant_tail.py``) whatever ``decoder_impl`` is."""
-        if self.quant_sp is not None:
-            feat = quant_vgg_forward(self.quant_sp.spatial, rgb_in, self.quant_conv,
-                                     self._taps["spatial"])
-            f_temporal = quant_vgg_forward(self.quant_sp.temporal, flow_in, self.quant_conv,
-                                           self._taps["temporal"])
-            if self.quant_sp.tail is not None:
+        with span("sp.encode"):
+            if self.quant_sp is not None:
+                feat = quant_vgg_forward(self.quant_sp.spatial, rgb_in, self.quant_conv,
+                                         self._taps["spatial"])
+                f_temporal = quant_vgg_forward(self.quant_sp.temporal, flow_in, self.quant_conv,
+                                               self._taps["temporal"])
+            else:
+                feat, f_temporal = self.sp.encode(rgb_in, flow_in)
+        dt = self.dtype
+        with span("sp.decode"):
+            if self.quant_sp is not None and self.quant_sp.tail is not None:
                 sal = quant_tail_forward(self.quant_sp.tail, feat, f_temporal,
                                          self._taps["tail"])
-                return sal, feat
-        elif self.decoder_impl == "deconv":
-            return self.sp(rgb_in, flow_in)
-        else:
-            feat, f_temporal = self.sp.encode(rgb_in, flow_in)
-            feat = feat.float()
-        dt = self.dtype
-        if self.decoder_impl == "pixelshuffle":
-            sal = decode_fast.fast_fuse_decode(self.sp, feat.to(dt), f_temporal.to(dt), dt)
-        elif self.decoder_impl == "halfres":
-            sal = decode_fast.halfres_fuse_decode(self.sp, feat.to(dt), f_temporal.to(dt), dt)
-        else:
-            sal = self.sp.fuse_decode(feat.to(dt), f_temporal.to(dt))
-        return sal, feat
+            elif self.decoder_impl == "pixelshuffle":
+                sal = decode_fast.fast_fuse_decode(self.sp, feat.to(dt), f_temporal.to(dt), dt)
+            elif self.decoder_impl == "halfres":
+                sal = decode_fast.halfres_fuse_decode(self.sp, feat.to(dt), f_temporal.to(dt),
+                                                      dt)
+            else:
+                sal = self.sp.fuse_decode(feat.to(dt), f_temporal.to(dt))
+        return sal, feat.float()
 
     def sp_forward_train(
         self, rgb_in: torch.Tensor, flow_in: torch.Tensor, mesh=None
@@ -348,11 +353,15 @@ class GazePipeline:
             gaze_xy = torch.as_tensor(gaze_xy, dtype=torch.float32, device=dev)
         if flow_img is not None:
             flow_img = torch.as_tensor(flow_img, device=dev)
-        rgb_in, flow_in = self.preprocess_pair(
-            torch.as_tensor(prev_u8, device=dev), torch.as_tensor(cur_u8, device=dev), flow_img
-        )
-        sal, feat = self.sp_forward(rgb_in, flow_in)
-        return self.attend(state, sal, feat, fixation, gaze_xy)
+        count("pipeline.steps")
+        with span("step.preprocess"):
+            rgb_in, flow_in = self.preprocess_pair(
+                torch.as_tensor(prev_u8, device=dev), torch.as_tensor(cur_u8, device=dev),
+                flow_img)
+        with span("step.sp"):
+            sal, feat = self.sp_forward(rgb_in, flow_in)
+        with span("step.attend"):
+            return self.attend(state, sal, feat, fixation, gaze_xy)
 
 
 @torch.inference_mode()
@@ -368,8 +377,9 @@ def run_clip(
     every intermediate stays there.
     """
     dev = pipeline.device
-    frames = torch.as_tensor(frames_u8, device=dev)
-    fix = torch.as_tensor(fixsac, dtype=torch.float32, device=dev)
+    with span("clip.upload"):
+        frames = torch.as_tensor(frames_u8, device=dev)
+        fix = torch.as_tensor(fixsac, dtype=torch.float32, device=dev)
     state = pipeline.init_state(frames.shape[0])
     heatmaps, gaze = [], []
     for t in range(frames.shape[1] - 1):

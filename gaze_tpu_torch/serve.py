@@ -41,6 +41,7 @@ from gaze_tpu_torch.models.pipeline import GazePipeline, StreamState
 from gaze_tpu_torch.models.quant import QuantSP
 from gaze_tpu_torch.models.weights import StateDict
 from gaze_tpu_torch.parallel.mesh import Mesh, checked
+from gaze_tpu_torch.utils.profiling import count, span
 
 
 def _map_state(fn, a: StreamState, b: StreamState) -> StreamState:
@@ -55,6 +56,16 @@ def _map_state(fn, a: StreamState, b: StreamState) -> StreamState:
 
 class StreamServer:
     """Stateful server over a fixed pool of ``max_streams`` video streams.
+
+    Spans (``utils/profiling.py``, recorded only inside a
+    ``recording()``): ``serve.stage`` (the pinned copy's start) and
+    ``serve.advance`` of the same batch carry the same id ``tick``, the
+    batch's number in this server, so the time a staged batch waits for
+    its tick runs from the end of the one to the start of the other;
+    ``serve.advance`` holds ``serve.idt``, ``serve.step`` (the pipeline's
+    step and its ``step.*`` spans), ``serve.revert`` (first frames keep
+    their fresh state) and ``serve.readback`` (the gaze, and the maps with
+    ``keep_heatmaps``, to the host). Counter: ``serve.ticks``.
 
     Args:
       config: the pipeline config (``preset_config(...)`` etc.).
@@ -148,6 +159,7 @@ class StreamServer:
         # the result of a drain forced by attach()/detach(), handed out by
         # the next submit() or flush()
         self._stash = None
+        self._staged = 0   # batches staged so far: the next one's tick id
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
     # ------------------------------------------------------- control ----
@@ -200,7 +212,7 @@ class StreamServer:
     def _stage(self, frames):
         """Start the host-to-device copy of this process's slots of a (S,
         H, W, 3) uint8 batch. Returns (device tensor, the event that ends
-        its copy or None).
+        its copy or None, the batch's tick id).
 
         On the card the batch goes through pinned host memory on the side
         stream. The copy's destination is allocated on that stream and
@@ -209,21 +221,24 @@ class StreamServer:
         pinned source is held by the caching host allocator until its
         copy has run. A batch already on the server's device is copied too:
         the caller may refill its buffer before the tick that reads it."""
-        frames = frames[self._rows]
-        if torch.is_tensor(frames) and frames.device == self.device:
-            return frames.clone(), None
-        host = torch.as_tensor(np.asarray(frames, dtype=np.uint8))
-        if self._copy_stream is None:
-            return host.clone(), None       # the caller may reuse its buffer
-        host = host.pin_memory()
-        with torch.cuda.stream(self._copy_stream):
-            dev = host.to(self.device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self._copy_stream)
-        return dev, done
+        tick = self._staged
+        self._staged += 1
+        with span("serve.stage", tick=tick):
+            frames = frames[self._rows]
+            if torch.is_tensor(frames) and frames.device == self.device:
+                return frames.clone(), None, tick
+            host = torch.as_tensor(np.asarray(frames, dtype=np.uint8))
+            if self._copy_stream is None:
+                return host.clone(), None, tick       # the caller may reuse its buffer
+            host = host.pin_memory()
+            with torch.cuda.stream(self._copy_stream):
+                dev = host.to(self.device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+            return dev, done, tick
 
     def _consume(self, staged):
-        dev, done = staged
+        dev, done, _ = staged
         if done is not None:
             compute = torch.cuda.current_stream(self.device)
             compute.wait_event(done)
@@ -231,39 +246,43 @@ class StreamServer:
         return dev
 
     @torch.inference_mode()
-    def _advance(self, cur: torch.Tensor, fixations) -> Dict[str, np.ndarray]:
-        if fixations is None:
-            if self.fixation_source == "idt":
-                fixations = self._idt_labels()
-            else:   # "static": one LSTM onset per stream, ever
-                fixations = np.ones(self._active.shape, np.float32)
-        fix = np.asarray(fixations, np.float32) * self._active.astype(np.float32)
-        # streams without a previous frame keep their fresh state: the flow
-        # of their first pair (against a stale or zero prev) is garbage
-        first_np = ~self._seen_first & self._active
-        first = torch.from_numpy(first_np[self._rows]).to(self.device)
-        new_state, out = self.pipeline.step(self._state, self._prev, cur, fix[self._rows])
+    def _advance(self, staged, fixations) -> Dict[str, np.ndarray]:
+        with span("serve.advance", tick=staged[2]):
+            cur = self._consume(staged)
+            count("serve.ticks")
+            if fixations is None:
+                with span("serve.idt"):
+                    if self.fixation_source == "idt":
+                        fixations = self._idt_labels()
+                    else:   # "static": one LSTM onset per stream, ever
+                        fixations = np.ones(self._active.shape, np.float32)
+            fix = np.asarray(fixations, np.float32) * self._active.astype(np.float32)
+            # streams without a previous frame keep their fresh state: the flow
+            # of their first pair (against a stale or zero prev) is garbage
+            first_np = ~self._seen_first & self._active
+            first = torch.from_numpy(first_np[self._rows]).to(self.device)
+            with span("serve.step"):
+                new_state, out = self.pipeline.step(self._state, self._prev, cur, fix[self._rows])
 
-        def keep_old(new, old):
-            return torch.where(first.reshape((-1,) + (1,) * (new.dim() - 1)), old, new)
+            def keep_old(new, old):
+                return torch.where(first.reshape((-1,) + (1,) * (new.dim() - 1)), old, new)
 
-        self._state = _map_state(keep_old, new_state, self._state)
-        self._prev.copy_(cur)   # the server's own buffer, never the caller's tensor
+            with span("serve.revert"):
+                self._state = _map_state(keep_old, new_state, self._state)
+            self._prev.copy_(cur)   # the server's own buffer, never the caller's tensor
 
-        gaze = all_gather_rows(out["gaze"], self._gather).cpu().numpy().copy()
-        gaze[first_np] = -1.0
-        gaze[~self._active] = -1.0
-        self._seen_first |= self._active
-        # slide the I-DT window: sentinel and inactive frames stay NaN, so
-        # they never complete a fixation window
-        self._gaze_hist = np.roll(self._gaze_hist, -1, axis=1)
-        self._gaze_hist[:, -1] = np.where(gaze[:, :1] < 0, np.nan, gaze)
-
-        result = {"gaze": gaze}
-        if self.keep_heatmaps:
-            for k in ("heatmap", "saliency", "attention"):
-                result[k] = all_gather_rows(out[k].float(), self._gather).cpu().numpy()
-        return result
+            with span("serve.readback"):
+                gaze = all_gather_rows(out["gaze"], self._gather).cpu().numpy().copy()
+                maps = {k: all_gather_rows(out[k].float(), self._gather).cpu().numpy()
+                        for k in ("heatmap", "saliency", "attention") if self.keep_heatmaps}
+            gaze[first_np] = -1.0
+            gaze[~self._active] = -1.0
+            self._seen_first |= self._active
+            # slide the I-DT window: sentinel and inactive frames stay NaN, so
+            # they never complete a fixation window
+            self._gaze_hist = np.roll(self._gaze_hist, -1, axis=1)
+            self._gaze_hist[:, -1] = np.where(gaze[:, :1] < 0, np.nan, gaze)
+            return {"gaze": gaze, **maps}
 
     def tick(self, frames, fixations: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
         """Advance every active stream by one frame.
@@ -281,7 +300,7 @@ class StreamServer:
           "saliency" and "attention" (S, H, W). A slot seeing its first
           frame, and an inactive one, returns gaze (-1, -1).
         """
-        return self._advance(self._consume(self._stage(frames)), fixations)
+        return self._advance(self._stage(frames), fixations)
 
     def submit(self, frames, fixations: Optional[np.ndarray] = None):
         """Pipelined tick: start this batch's host-to-device copy, then
@@ -290,7 +309,7 @@ class StreamServer:
         staged = self._stage(frames)
         result, self._stash = self._stash, None
         if self._pending is not None:
-            result = self._advance(self._consume(self._pending), self._pending_fix)
+            result = self._advance(self._pending, self._pending_fix)
         self._pending, self._pending_fix = staged, fixations
         return result
 
@@ -303,7 +322,7 @@ class StreamServer:
             return result
         staged, fix = self._pending, self._pending_fix
         self._pending = self._pending_fix = None
-        return self._advance(self._consume(staged), fix)
+        return self._advance(staged, fix)
 
 
 class DistributedStreamServer(StreamServer):

@@ -38,6 +38,7 @@ from gaze_tpu_torch.train.common import (
     make_state,
     to_device,
 )
+from gaze_tpu_torch.utils.profiling import span
 
 
 def create_at_state(pipeline: GazePipeline, seed: Optional[int] = None) -> TrainState:
@@ -67,9 +68,12 @@ def make_at_train_step(pipeline: GazePipeline, mesh=None):
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         batch = to_device(batch, pipeline.device)
         ws, mask = batch["weights"], batch["mask"]
-        m = (mask[:, :-1] * mask[:, 1:])[..., None]
-        loss = _masked_mse(lstm(ws[:, :-1]), ws[:, 1:], m, mesh)
-        loss, grads = dp_reduce(loss, torch.autograd.grad(loss, state.params), mesh)
+        with span("train.forward"):
+            m = (mask[:, :-1] * mask[:, 1:])[..., None]
+            loss = _masked_mse(lstm(ws[:, :-1]), ws[:, 1:], m, mesh)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, state.params)
+        loss, grads = dp_reduce(loss, grads, mesh)
         state.apply_gradients(grads)
         return state, {"loss": loss.detach()}
 
@@ -258,9 +262,12 @@ def make_at_tbptt_step(pipeline: GazePipeline, mesh=None):
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         batch = to_device(batch, pipeline.device)
         mask = batch["mask"]
-        new, pred = lstm.rollout(_carries(batch, L), batch["inputs"])
-        loss = _masked_mse(pred, batch["targets"], mask[..., None], mesh)
-        loss, grads = dp_reduce(loss, torch.autograd.grad(loss, state.params), mesh)
+        with span("train.forward"):
+            new, pred = lstm.rollout(_carries(batch, L), batch["inputs"])
+            loss = _masked_mse(pred, batch["targets"], mask[..., None], mesh)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, state.params)
+        loss, grads = dp_reduce(loss, grads, mesh)
         state.apply_gradients(grads)
         return state, {
             "loss": loss.detach(),

@@ -34,6 +34,14 @@ differs:
   max_norm`` (``torch.nn.utils.clip_grad_norm_`` divides by
   ``g_norm + 1e-6`` whenever it clips);
 - the schedules compute in float32 as optax's do.
+
+Spans (``utils/profiling.py``, recorded only inside a ``recording()``),
+the same in every stage's step: ``train.upload`` (:func:`to_device`, the
+batch to the card), ``train.forward`` (the loss, with the inputs'
+preprocessing), ``train.backward`` (``torch.autograd.grad``),
+``train.reduce`` (:func:`dp_reduce`, under a mesh) and
+``train.optimizer`` (:meth:`TrainState.apply_gradients`); counter
+``train.steps``.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import torch.nn as nn
 from gaze_tpu_torch.core.config import TrainConfig
 from gaze_tpu_torch.core.distributed import all_reduce_flat_
 from gaze_tpu_torch.parallel.mesh import Mesh, checked
+from gaze_tpu_torch.utils.profiling import count, span
 
 Schedule = Callable[[int], float]
 LearningRate = Union[float, Schedule]
@@ -237,11 +246,13 @@ class TrainState:
                         ) -> "TrainState":
         """One optimizer update; the BatchNorm statistics become
         ``new_batch_stats`` when given."""
-        self.tx.update(self.params, grads, self.opt_state)
-        if new_batch_stats:
-            stats = self.batch_stats()
-            for k, v in new_batch_stats.items():
-                stats[k].copy_(v)
+        count("train.steps")
+        with span("train.optimizer"):
+            self.tx.update(self.params, grads, self.opt_state)
+            if new_batch_stats:
+                stats = self.batch_stats()
+                for k, v in new_batch_stats.items():
+                    stats[k].copy_(v)
         self.step += 1
         return self
 
@@ -281,8 +292,11 @@ def microbatch_value_and_grad(
     loss_sum = grad_sum = aux = None
     for i in range(k):
         mb = batch if k == 1 else {key: v.chunk(k)[i] for key, v in batch.items()}
-        loss, aux = loss_fn(mb)
-        grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        with span("train.forward"):
+            loss, aux = loss_fn(mb)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                        materialize_grads=True)
         loss = loss.detach()
         if k == 1:
             loss, grads = dp_reduce(loss, grads, mesh)
@@ -300,7 +314,8 @@ def dp_reduce(loss: torch.Tensor, grads: Sequence[torch.Tensor], mesh: Optional[
     Without a mesh they pass through."""
     if mesh is None:
         return loss, list(grads)
-    out = all_reduce_flat_([g.detach() for g in grads] + [loss.detach().reshape(1)], mesh)
+    with span("train.reduce"):
+        out = all_reduce_flat_([g.detach() for g in grads] + [loss.detach().reshape(1)], mesh)
     return out[-1].reshape(()), out[:-1]
 
 
@@ -316,4 +331,5 @@ def jit_dp_step(step_fn: Callable, mesh: Optional[Mesh] = None) -> Callable:
 
 def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
     """A batch of numpy arrays or tensors as tensors on ``device``."""
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    with span("train.upload"):
+        return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}

@@ -30,6 +30,7 @@ from gaze_tpu_torch.train.common import (
     make_state,
     to_device,
 )
+from gaze_tpu_torch.utils.profiling import span
 
 SCORE_KEYS = ("heatmap", "saliency", "attention")
 
@@ -79,10 +80,13 @@ def make_lf_train_step(pipeline: GazePipeline, frozen: Dict[str, StateDict], mes
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         batch = to_device(batch, pipeline.device)
-        sal, amap = _frozen_maps(pipeline, batch)
-        loss = _lf_loss(pipeline, state.module, sal, amap, batch["gaze"], batch.get("valid"),
-                        mesh)
-        loss, grads = dp_reduce(loss, torch.autograd.grad(loss, state.params), mesh)
+        with span("train.forward"):
+            sal, amap = _frozen_maps(pipeline, batch)
+            loss = _lf_loss(pipeline, state.module, sal, amap, batch["gaze"],
+                            batch.get("valid"), mesh)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, state.params)
+        loss, grads = dp_reduce(loss, grads, mesh)
         state.apply_gradients(grads)
         return state, {"loss": loss.detach()}
 
@@ -119,20 +123,24 @@ def make_lf_rollout_train_step(pipeline: GazePipeline, frozen: Dict[str, StateDi
         batch = to_device(batch, pipeline.device)
         frames = batch["frames"]
         B, T = frames.shape[0], frames.shape[1] - 1
-        fix = batch["fixsac"].to(torch.float32)
-        st = pipeline.init_state(B)
-        sals, amaps = [], []
-        with torch.no_grad():
-            for t in range(T):
-                st, out = pipeline.forward_step(st, frames[:, t], frames[:, t + 1], fix[:, t + 1])
-                sals.append(out["saliency"])
-                amaps.append(out["attention"])
-        sal = torch.stack(sals, dim=1).reshape(B * T, *sals[0].shape[1:])
-        amap = torch.stack(amaps, dim=1).reshape(B * T, *amaps[0].shape[1:])
-        loss = _lf_loss(pipeline, state.module, sal, amap,
-                        batch["gaze"][:, 1:].reshape(B * T, 2).to(torch.float32),
-                        batch["valid"][:, 1:].reshape(B * T), mesh)
-        loss, grads = dp_reduce(loss, torch.autograd.grad(loss, state.params), mesh)
+        with span("train.forward"):
+            fix = batch["fixsac"].to(torch.float32)
+            st = pipeline.init_state(B)
+            sals, amaps = [], []
+            with torch.no_grad():
+                for t in range(T):
+                    st, out = pipeline.forward_step(st, frames[:, t], frames[:, t + 1],
+                                                    fix[:, t + 1])
+                    sals.append(out["saliency"])
+                    amaps.append(out["attention"])
+            sal = torch.stack(sals, dim=1).reshape(B * T, *sals[0].shape[1:])
+            amap = torch.stack(amaps, dim=1).reshape(B * T, *amaps[0].shape[1:])
+            loss = _lf_loss(pipeline, state.module, sal, amap,
+                            batch["gaze"][:, 1:].reshape(B * T, 2).to(torch.float32),
+                            batch["valid"][:, 1:].reshape(B * T), mesh)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, state.params)
+        loss, grads = dp_reduce(loss, grads, mesh)
         state.apply_gradients(grads)
         return state, {"loss": loss.detach()}
 

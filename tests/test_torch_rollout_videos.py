@@ -24,6 +24,7 @@ from gaze_tpu_torch.data.gtea import build_manifest
 from gaze_tpu_torch.evaluation import rollout
 from gaze_tpu_torch.models.pipeline import GazePipeline
 from gaze_tpu_torch.models.weights import torch_state_from_jax
+from gaze_tpu_torch.utils.profiling import recording
 from tests.test_torch_models import jax_variables, make_configs
 from tests.torch_gtea_tree import write_tree
 from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
@@ -70,10 +71,9 @@ def assert_results_close(got, want):
 
 @pytest.mark.parametrize("flow", [False, True], ids=["tvl1", "flow_images"])
 def test_videos_match_jax(corpus, flow):
-    waits = []
-    got = rollout.rollout_eval_videos(corpus["pipe"], corpus["recs"], chunk_len=CHUNK,
-                                      group_size=GROUP, use_precomputed_flow=flow,
-                                      decode_waits=waits)
+    with recording() as rec:
+        got = rollout.rollout_eval_videos(corpus["pipe"], corpus["recs"], chunk_len=CHUNK,
+                                          group_size=GROUP, use_precomputed_flow=flow)
     assert_results_close(got, corpus["want"][flow])
     # counts: the tracked frames after frame 0; a single-frame video
     # scores nothing, alone (nan) or beside longer ones (0)
@@ -81,7 +81,8 @@ def test_videos_match_jax(corpus, flow):
                                                  "Dee_Jam": 3, "Eve_Pie": 0}
     assert np.isnan(got["Eve_Pie"][0]) and got["Cal_Nap"][0] == 0.0
     # one decode wait per chunk: 2 chunks of the first group, 1 of the second
-    assert len(waits) == 3
+    waits = [s for s in rec.spans if s.name == "rollout.decode_wait"]
+    assert len(waits) == 3 and all(s.end_ns >= s.start_ns for s in waits)
     # the sums do not depend on the chunking
     again = rollout.rollout_eval_videos(corpus["pipe"], corpus["recs"], chunk_len=8,
                                         group_size=GROUP, use_precomputed_flow=flow)
