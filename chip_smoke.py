@@ -162,7 +162,11 @@ synthetic sequences from numpy seeds, stream i the sequence of seed i mod
   the K3 instantiations of a whole clip, peak memory; the rows of one
   seed within BENCH_ROW_TOL, rows 0-7 within B8_TOL of the same streams at
   B=8 (the first step's gap per stage beside it), production's streams
-  0-1 against the CPU;
+  0-1 against the CPU; a clip traced with the program's spans
+  (``benchmark/program_spans.py``): the glue's device ms a step under
+  ``sp.encode``, ``sp.nhwc_streams`` 2 a step where the streams take the
+  NHWC route (production) and 0 elsewhere, and there no layout transpose
+  under ``sp.encode`` beyond what the two conv1_1 launch alone;
 - serve_b128: a ``StreamServer`` of 128 slots under turbo and production,
   9 ``submit()`` ticks and a ``flush()`` held to ``run_clip``, then as
   ``bench.py --mode serve`` runs it (online I-DT, 3 x 8 timed submits);
@@ -171,6 +175,9 @@ synthetic sequences from numpy seeds, stream i the sequence of seed i mod
   targets and half with them mirrored, its loss, gradient and BatchNorm
   statistics against the mean of the 8-row steps with each set of
   targets, timed, peak memory (a batch that does not fit fails the run);
+  a step traced with the program's spans: the glue's device ms under
+  ``sp.encode``, ``sp.decode`` and ``train.backward``, and no transpose
+  under ``sp.encode`` beyond conv1_1's;
 - options: ``run_clip`` at B=8 under parity with the pixelshuffle and
   halfres decoders and ``at_pool="prediction"``, each against a CPU run;
   a turbo ``StreamServer`` with the pixelshuffle decoder held to
@@ -509,7 +516,7 @@ TRACES_TAKEN = [0]
 TRACE_PADS = {}
 
 
-def device_profile(torch, fn, grids_of: str | None = None):
+def device_profile(torch, fn, grids_of: str | None = None, spans: bool = False):
     """Run ``fn`` once under ``torch.profiler``. Returns the host wall
     seconds and the CUPTI trace (``Trace``). The CUDA-event times above
     include the wrapper's host cost when the host enqueues slower than the
@@ -517,17 +524,27 @@ def device_profile(torch, fn, grids_of: str | None = None):
     (``fn`` runs again) in a wider window (``PROFILE_PADS_S``); the last
     one is returned, complete or not, and an incomplete one is reported on
     stderr. With ``grids_of``, also returns the launch grids of the kernels
-    whose name holds it, in launch order, from the trace's ``grid`` field."""
+    whose name holds it, in launch order, from the trace's ``grid`` field.
+    With ``spans``, ``fn`` runs under the program's ``recording()`` too,
+    and the trace's ``program`` is its ``ProgramTrace``
+    (``benchmark/program_spans.py``: every device op with the innermost
+    program span it was launched in); the trace is complete only if it
+    also holds every recorded span and the launch of every op."""
+    from collections import Counter
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from benchmark.program_spans import PROGRAM_PREFIX, from_events
     from gaze_tpu_torch.ops import cuda
+    from gaze_tpu_torch.utils.profiling import recording
 
     for pad in PROFILE_PADS_S:
         TRACES_TAKEN[0] += 1
         torch.cuda.synchronize()
         before = launch_counts(cuda)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with recording() if spans else contextlib.nullcontext() as rec, profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(pad)
             t0 = time.perf_counter()
             fn()
@@ -536,12 +553,16 @@ def device_profile(torch, fn, grids_of: str | None = None):
             time.sleep(pad)
         counted = {k: v - before[k] for k, v in launch_counts(cuda).items()}
         by_name = Trace()
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+        for e in prof.events():   # a program span's device-side copy is no work
+            if e.device_type == DeviceType.CUDA and not e.name.startswith(PROGRAM_PREFIX):
                 us, n = by_name.get(e.name, (0.0, 0))
                 by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
         traced = {k: traced_launches(by_name, k) for k in counted}
         by_name.complete = bool(by_name) and traced == counted
+        if spans:
+            by_name.program, held = from_events(prof.events(), rec)
+            by_name.complete &= (by_name.program.unlinked == 0 and rec.dropped == 0
+                                 and held == Counter(s.name for s in rec.spans))
         if by_name.complete:
             break
     key = str(pad) if by_name.complete else "incomplete"
@@ -3617,6 +3638,48 @@ def bench_pipeline(torch, name: str, seqs, **options) -> dict:
                 calibration_s=calib_s)
 
 
+# The glue around the float VGG streams' cuDNN convolutions, by a part of
+# the device function's name: the layout transposes cuDNN puts around a
+# convolution whose tensors are not in its kernel's layout, the broadcast
+# bias adds, the ReLUs (clamp forward, threshold backward), the max-pools
+# and, backward, the sums (the bias gradients; BatchNorm's in the decoder).
+GLUE_OPS = {"transposes": ("nchwToNhwc", "nhwcToNchw"), "bias_adds": ("CUDAFunctor_add",),
+            "relu": ("clamp", "threshold"), "max_pool": ("max_pool",), "sums": ("sum_functor",)}
+
+
+def glue_ms(prof, span: str, steps: int) -> dict:
+    """Device ms a step of each GLUE_OPS class among the ops launched under
+    the program span ``span`` (its children's included) in a trace taken
+    with ``device_profile(spans=True)``, of all of them (``all``), and the
+    transposes' launches a step; the ms NaN where the trace is incomplete."""
+    pt = prof.program
+    ops = [(op[0], op[2] - op[1]) for op in pt.ops if pt._within(op[3], span)]
+    nan = float("nan")
+    out = {k: (1e3 * sum(d for name, d in ops if any(p in name for p in parts)) / steps
+               if prof.complete else nan) for k, parts in GLUE_OPS.items()}
+    out["all"] = 1e3 * sum(d for _, d in ops) / steps if prof.complete else nan
+    out["transpose_launches"] = sum(
+        1 for name, _ in ops if any(p in name for p in GLUE_OPS["transposes"])) / steps
+    return out
+
+
+def conv1_1_transposes(torch, sp, batch: int) -> float:
+    """Transpose launches of the two streams' conv1_1 alone, each on a
+    (``batch``, C, SIZE, SIZE) input in the memory format its stream
+    gives it (``models/vgg.py``): all that ``sp.encode`` may launch a
+    step."""
+    from gaze_tpu_torch.models.vgg import _nhwc_route, conv
+
+    convs = (sp.spatial.conv1_1, sp.temporal.conv1_1)
+    dev, dtype = convs[0].weight.device, sp.spatial.dtype
+    fmt = torch.channels_last if _nhwc_route(dev, dtype) else torch.contiguous_format
+    xs = [torch.zeros(batch, m.in_channels, SIZE, SIZE, device=dev, dtype=dtype)
+          .contiguous(memory_format=fmt) for m in convs]
+    with torch.no_grad():
+        _, prof = device_profile(torch, lambda: [conv(m, x) for m, x in zip(convs, xs)])
+    return sum(device_us(prof, part)[1] for part in GLUE_OPS["transposes"])
+
+
 def k3_instance(bk: int, bn: int, dequant: bool, pool: bool) -> str:
     """A K3 instantiation as its template arguments <BK, BN, DEQUANT, POOL>."""
     return f"<{bk}, {bn}, {str(dequant).lower()}, {str(pool).lower()}>"
@@ -3807,6 +3870,7 @@ def clip_b128_phase(torch, cuda, bench) -> dict:
     counts."""
     from gaze_tpu_torch.evaluation.metrics import aae, auc_judd
     from gaze_tpu_torch.models.pipeline import GazePipeline, run_clip
+    from gaze_tpu_torch.models.vgg import _nhwc_route
 
     seqs, frames, gaze_gt, fixsac = bench
     groups = BENCH_B // BENCH_G
@@ -3893,7 +3957,24 @@ def clip_b128_phase(torch, cuda, bench) -> dict:
                    same_seed_rows_tol=BENCH_ROW_TOL, b8_max_diff=b8_diff, b8_tol=b8_tol,
                    b8_near_tie_frames=b8_ties, b8_first_step_max_diff=b8_stage_diff,
                    bf16_vs_float32_max_diff=bf16_effect)
+        # the program's spans over one whole clip: the glue under sp.encode;
+        # streams on the NHWC route launch no transpose beyond conv1_1's
+        _, spans = device_profile(torch, lambda: run_clip(pipe, frames, fixsac), spans=True)
+        routed = bp["qsp"] is None and _nhwc_route(pipe.device, pipe.sp.spatial.dtype)
+        allowed = conv1_1_transposes(torch, pipe.sp, BENCH_B) if routed else 0
+        encode = glue_ms(spans, "sp.encode", T)
+        want_counters = {"pipeline.steps": T, "sp.nhwc_streams": 2 * T if routed else 0}
+        got_counters = {k: spans.program.counters.get(k, 0) for k in want_counters}
+        row.update(span_trace_complete=spans.complete, counters=got_counters,
+                   encode_glue_ms_per_step=encode,
+                   decode_glue_ms_per_step=glue_ms(spans, "sp.decode", T),
+                   conv1_1_transposes_per_step=allowed)
         checks = []
+        if got_counters != want_counters:
+            checks.append(f"the traced clip counted {got_counters}, expected {want_counters}")
+        if routed and encode["transpose_launches"] > allowed:
+            checks.append(f"{encode['transpose_launches']} transposes a step under sp.encode, "
+                          f"more than conv1_1's {allowed}")
         # a complete trace holds each K3 launch as the instantiation that the
         # launcher takes for its layer
         rule = k3_step_instances(BENCH_B) if bp["qsp"] is not None else {}
@@ -3942,7 +4023,7 @@ def clip_b128_phase(torch, cuda, bench) -> dict:
         if checks:
             fail(f"clip_b128 {name}: " + "; ".join(checks))
         out[name] = dict(bp=bp, hm=hm.float().cpu(), gz=gz.cpu(), hm8=hm8, launches=expect)
-        del hm, gz, rows_hm, prof
+        del hm, gz, rows_hm, prof, spans
         torch.cuda.empty_cache()
     return out
 
@@ -4138,6 +4219,15 @@ def train_b128_phase(torch, cuda) -> dict:
     _, prof = device_profile(torch, lambda: step(state, repeated(BENCH_B)))
     busy = busy_ms(prof)
     top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:6]
+    # the program's spans over one more step: the glue of the streams'
+    # forward (sp.encode), the rest of the forward (sp.decode) and the
+    # backward; no transpose under sp.encode beyond conv1_1's
+    _, spans = device_profile(torch, lambda: step(state, repeated(BENCH_B)), spans=True)
+    glue = {k: glue_ms(spans, span, 1) for k, span in (
+        ("encode", "sp.encode"), ("decode", "sp.decode"), ("backward", "train.backward"))}
+    allowed = conv1_1_transposes(torch, pipe.sp, BENCH_B)
+    want_counters = {"train.steps": 1, "sp.nhwc_streams": 2}
+    got_counters = {k: spans.program.counters.get(k, 0) for k in want_counters}
     wall_ms = float(np.median(walls)) * 1e3
     launches = {k: sum(c[k] for c in step_launches) for k in per_step}
     emit("train_b128", preset="production", batch=BENCH_B, size=SIZE, remat=pcfg.sp.remat,
@@ -4150,6 +4240,8 @@ def train_b128_phase(torch, cuda) -> dict:
          peak_mem_bytes=peak, first_step_peak_mem_bytes=big["peak"],
          launches_per_step=per_step, launches=launches,
          top_kernels=[{"name": k[:90], "ms": v[0] / 1e3, "launches": v[1]} for k, v in top],
+         span_trace_complete=spans.complete, counters=got_counters, glue_ms=glue,
+         conv1_1_transposes=allowed,
          vs_b8_mean={"loss": big["loss"], "b8_mean_loss": mean_loss, "loss_rel_err": loss_rel,
                      "grads": grads, "batch_stats_rel_err": stats_rel,
                      "b8_a_vs_mean_grad_rel_l2": a_vs_mean,
@@ -4160,6 +4252,11 @@ def train_b128_phase(torch, cuda) -> dict:
     for n, got in enumerate(step_launches):
         if got != per_step:
             fail(f"train_b128: timed step {n} launched {got}, expected {per_step}")
+    if got_counters != want_counters:
+        fail(f"train_b128: the traced step counted {got_counters}, expected {want_counters}")
+    if glue["encode"]["transpose_launches"] > allowed:
+        fail(f"train_b128: {glue['encode']['transpose_launches']} transposes under sp.encode, "
+             f"more than conv1_1's {allowed}")
     if not a_vs_mean > TRAIN_B128_AB_MIN * TRAIN_B128_GRAD_RTOL:
         fail(f"train_b128: targets A and B give gradients only {a_vs_mean} from their mean: "
              f"the check could not tell a step on part of the batch")
@@ -4168,7 +4265,7 @@ def train_b128_phase(torch, cuda) -> dict:
         fail(f"train_b128: the B={BENCH_B} step differs from the mean of the B={TRAIN_B} steps "
              f"outside the bands: loss {loss_rel}, gradients {grads['model_rel_l2']}, "
              f"statistics {stats_rel}")
-    del state, pipe, prof
+    del state, pipe, prof, spans
     torch.cuda.empty_cache()
     return launches
 

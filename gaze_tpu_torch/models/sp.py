@@ -6,7 +6,8 @@ ReLU, then ConvTranspose(4, stride 2)+BN+ReLU blocks up to the input
 grid, a 1x1 conv to one channel and a sigmoid. Returns the saliency map
 and the spatial stream's conv5 features (what AT pools).
 
-NHWC at the public methods, NCHW inside. ``forward`` normalizes the
+NHWC at the public methods, NCHW inside (the VGG streams channels_last
+on the card in bf16 and fp16: ``models/vgg.py``). ``forward`` normalizes the
 decoder's BatchNorm with its running statistics (inference);
 ``forward_train`` normalizes with the batch's statistics and returns the
 updated running statistics without storing them, as flax's
@@ -46,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from gaze_tpu_torch.core.config import SPConfig
 from gaze_tpu_torch.core.distributed import all_reduce_sum_grad
 from gaze_tpu_torch.models.vgg import VGG16Features, conv
+from gaze_tpu_torch.utils.profiling import span
 
 BN_MOMENTUM = 0.99   # flax's: running = m * running + (1 - m) * batch
 REMAT_MODES = ("none", "encoders", "full")
@@ -172,13 +174,16 @@ class SPNet(nn.Module):
         new BatchNorm running statistics keyed by state-dict name). The
         module's own statistics are left as they are; ``cfg.remat``
         applies; BatchNorm takes the global batch's statistics under a
-        data ``mesh``."""
-        if self.cfg.remat == "none":
-            f_spatial, f_temporal = self.encode(rgb, flow)
-        else:
-            f_spatial = checkpoint(self.spatial, rgb, use_reentrant=False)
-            f_temporal = checkpoint(self.temporal, flow, use_reentrant=False)
-        sal, stats = self.fuse_decode_train(f_spatial, f_temporal, mesh)
+        data ``mesh``. The streams run in the span ``sp.encode``, the
+        rest in ``sp.decode``, as in ``GazePipeline.sp_forward``."""
+        with span("sp.encode"):
+            if self.cfg.remat == "none":
+                f_spatial, f_temporal = self.encode(rgb, flow)
+            else:
+                f_spatial = checkpoint(self.spatial, rgb, use_reentrant=False)
+                f_temporal = checkpoint(self.temporal, flow, use_reentrant=False)
+        with span("sp.decode"):
+            sal, stats = self.fuse_decode_train(f_spatial, f_temporal, mesh)
         return sal, f_spatial.float(), stats
 
     def fuse_decode_train(

@@ -2,7 +2,10 @@
 
 Counterpart of ``gaze_tpu/models/vgg.py``: only the first four max-pools
 are applied, so a 224x224 input gives 14x14x512 conv5 features. NHWC at
-the boundary, NCHW inside.
+the boundary. Inside, a bf16 or fp16 stream on the card runs every layer
+channels_last, the layout of cuDNN's tensor-core convolutions, so that no
+layout transpose surrounds them in the forward or the backward; float32
+(cuDNN's FFT and NCHW kernels) and the CPU run NCHW.
 
 ``dtype`` is the activation and compute type (flax's ``dtype``); the
 parameters stay float32 (``param_dtype``) and are cast per call, as
@@ -17,6 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gaze_tpu_torch.utils.profiling import count
+
 # (channels per conv in each stage); a max-pool follows every stage but
 # the last.
 VGG16_STAGES: Tuple[Tuple[int, ...], ...] = (
@@ -26,6 +31,13 @@ VGG16_STAGES: Tuple[Tuple[int, ...], ...] = (
     (512, 512, 512),
     (512, 512, 512),
 )
+
+
+def _nhwc_route(device: torch.device, dtype: torch.dtype) -> bool:
+    """Whether a stream computing in ``dtype`` on ``device`` runs its
+    layers channels_last: on the card in bf16 and fp16, whose cuDNN
+    convolutions are NHWC-native."""
+    return device.type == "cuda" and dtype in (torch.bfloat16, torch.float16)
 
 
 def conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -56,6 +68,8 @@ class VGG16Features(nn.Module):
                 c = ch
 
     def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, Cin, H, W) -> (B, C5, H/16, W/16); each layer keeps ``x``'s
+        memory format."""
         x = x.to(self.dtype)
         for s, stage in enumerate(self.stages):
             for i in range(len(stage)):
@@ -65,5 +79,12 @@ class VGG16Features(nn.Module):
         return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.forward_nchw(x.permute(0, 3, 1, 2).contiguous())
+        # channels_last: the NCHW view of the NHWC input (free where it is
+        # contiguous) in, a contiguous NHWC tensor out; autograd carries
+        # the layout into the backward
+        fmt = torch.contiguous_format
+        if _nhwc_route(x.device, self.dtype):
+            count("sp.nhwc_streams")
+            fmt = torch.channels_last
+        y = self.forward_nchw(x.permute(0, 3, 1, 2).contiguous(memory_format=fmt))
         return y.permute(0, 2, 3, 1)

@@ -24,6 +24,7 @@ from gaze_tpu.models.sp import SPNet as JSPNet
 from gaze_tpu.models.weights_export import export_pipeline_to_torch
 from gaze_tpu_torch.core import config as tconfig
 from gaze_tpu_torch.models import at as tat
+from gaze_tpu_torch.models import vgg as tvgg
 from gaze_tpu_torch.models.lf import LateFusion
 from gaze_tpu_torch.models.pipeline import GazePipeline
 from gaze_tpu_torch.models.sp import SPNet
@@ -35,6 +36,7 @@ from gaze_tpu_torch.models.weights import (
     sp_to_torch_state,
     torch_state_from_jax,
 )
+from gaze_tpu_torch.utils import profiling
 from tests.torch_threads import cap_torch_threads  # noqa: F401  (autouse)
 
 NARROW = dict(
@@ -143,6 +145,46 @@ class TestSP:
         close(sal, j_sal)
         close(feat, j_feat)
         close(sal2, sal, atol=0, rtol=0)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+    def test_vgg_nhwc_route(self, narrow, dtype, monkeypatch):
+        """The streams' channels_last route, taken on the card in bf16 and
+        fp16 alone, forced on the CPU through the module's route test:
+        against the NCHW route, the same features (float32 within 1e-6 of
+        the largest, bf16 within one ulp of the larger of each pair) as
+        contiguous NHWC tensors, the same weight gradients within 1e-5,
+        and ``sp.nhwc_streams`` counted once a stream."""
+        _, tcfg, v = narrow
+        cuda, cpu = torch.device("cuda"), torch.device("cpu")
+        assert tvgg._nhwc_route(cuda, dtype) == (dtype == torch.bfloat16)
+        assert tvgg._nhwc_route(cuda, torch.float16)
+        assert not tvgg._nhwc_route(cpu, dtype) and not tvgg._nhwc_route(cpu, torch.float16)
+        sp = SPNet(tcfg.sp, dtype)
+        load_state(sp, {k: t(a) for k, a in sp_to_torch_state(v["sp"]).items()})
+        rgb, flow = (t(a) for a in sp_inputs(tcfg))
+        params = list(sp.spatial.parameters()) + list(sp.temporal.parameters())
+
+        def run():
+            with profiling.recording() as rec:
+                feats = sp.encode(rgb, flow)
+            loss = sum(f.float().square().sum() for f in feats)
+            return feats, torch.autograd.grad(loss, params), rec.counters
+
+        want, want_grads, counters = run()
+        assert counters == {}
+        monkeypatch.setattr(tvgg, "_nhwc_route", lambda device, dtype: True)
+        got, grads, counters = run()
+        assert counters == {"sp.nhwc_streams": 2}
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == dtype and g.shape == w.shape and g.is_contiguous()
+            big = torch.maximum(g.float().abs(), w.float().abs())
+            if dtype == torch.float32:
+                tol = 1e-6 * big.max()
+            else:   # bf16 keeps 8 significant bits: an ulp is 2^(e - 8) on [2^(e-1), 2^e)
+                tol = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+            assert bool(((g.float() - w.float()).abs() <= tol).all())
+        for g, w in zip(grads, want_grads):
+            assert float((g - w).norm()) <= 1e-5 * float(w.norm())
 
 
 class TestAT:

@@ -99,8 +99,8 @@ def check_tree(kind, rec):
         assert rec.counters == {"serve.ticks": 3, "pipeline.steps": 3}
     else:
         assert [(n, p) for n, p, _ in tree] == [
-            ("train.upload", None), ("train.forward", None), ("train.backward", None),
-            ("train.optimizer", None)]
+            ("train.upload", None), ("train.forward", None), ("sp.encode", "train.forward"),
+            ("sp.decode", "train.forward"), ("train.backward", None), ("train.optimizer", None)]
         assert rec.counters == {"train.steps": 1}
 
 
