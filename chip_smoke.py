@@ -157,6 +157,14 @@ synthetic sequences from numpy seeds, stream i the sequence of seed i mod
   ``csrc/conv_int8.cu``) beside the instantiation the trace names
   (conv5_1-conv5_3 take BN = 128 at B=128, 64 at B=8); each with its
   device time and bound;
+- vgg_fused_b128: each layer shape of the production streams at B=128 on
+  the NHWC route, the stream's layer (cuDNN's fused convolution, bias
+  and ReLU, ``models/vgg.py:conv_bias_relu``) against convolution, bias
+  add and ReLU and against a float32 convolution of the same bf16
+  operands: its largest error no larger than theirs plus one bf16 ulp;
+  run first on blocks last filled with NaN, which must not leak into the
+  output; device ms of both; then each shape at batches 1, 3, 8 and 16
+  and at a 64-pixel input's sides under the same rule;
 - clip_b128: ``run_clip`` under turbo, production and parity, timed 3
   times after a warm-up (exact launches in each), the device busy time and
   the K3 instantiations of a whole clip, peak memory; the rows of one
@@ -166,7 +174,8 @@ synthetic sequences from numpy seeds, stream i the sequence of seed i mod
   (``benchmark/program_spans.py``): the glue's device ms a step under
   ``sp.encode``, ``sp.nhwc_streams`` 2 a step where the streams take the
   NHWC route (production) and 0 elsewhere, and there no layout transpose
-  under ``sp.encode`` beyond what the two conv1_1 launch alone;
+  under ``sp.encode`` beyond what the two conv1_1 launch alone and no bias
+  add or ReLU;
 - serve_b128: a ``StreamServer`` of 128 slots under turbo and production,
   9 ``submit()`` ticks and a ``flush()`` held to ``run_clip``, then as
   ``bench.py --mode serve`` runs it (online I-DT, 3 x 8 timed submits);
@@ -176,8 +185,10 @@ synthetic sequences from numpy seeds, stream i the sequence of seed i mod
   statistics against the mean of the 8-row steps with each set of
   targets, timed, peak memory (a batch that does not fit fails the run);
   a step traced with the program's spans: the glue's device ms under
-  ``sp.encode``, ``sp.decode`` and ``train.backward``, and no transpose
-  under ``sp.encode`` beyond conv1_1's;
+  ``sp.encode``, ``sp.decode`` and ``train.backward``, no transpose
+  under ``sp.encode`` beyond conv1_1's and no bias add or ReLU; a B=8
+  step with ``remat="encoders"`` held to remat "none"'s
+  first gradient;
 - options: ``run_clip`` at B=8 under parity with the pixelshuffle and
   halfres decoders and ``at_pool="prediction"``, each against a CPU run;
   a turbo ``StreamServer`` with the pixelshuffle decoder held to
@@ -202,6 +213,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -436,6 +448,13 @@ BENCH_OPTIONS = (("pixelshuffle", dict(decoder_impl="pixelshuffle")),
 # mean, so that a step on part of the batch fails the band.
 TRAIN_B128_LOSS_RTOL, TRAIN_B128_GRAD_RTOL, TRAIN_B128_STATS_RTOL = 1e-3, 2.5e-2, 2.0**-8
 TRAIN_B128_AB_MIN = 4.0
+# vgg_fused_b128: blocks of a layer's output size filled with NaN and freed
+# right before the layer runs; the op's own copy of the weight in cuDNN's
+# layout, allocated before its output, may split one of them.
+POISON_BLOCKS = 3
+# vgg_fused_b128: the other batches each layer shape runs at (one stream,
+# an odd count, the B=8 checks, a 16-slot server)
+FUSED_SWEEP_BATCHES = (1, 3, 8, 16)
 
 
 def fail(msg: str) -> None:
@@ -3650,25 +3669,26 @@ GLUE_OPS = {"transposes": ("nchwToNhwc", "nhwcToNchw"), "bias_adds": ("CUDAFunct
 def glue_ms(prof, span: str, steps: int) -> dict:
     """Device ms a step of each GLUE_OPS class among the ops launched under
     the program span ``span`` (its children's included) in a trace taken
-    with ``device_profile(spans=True)``, of all of them (``all``), and the
-    transposes' launches a step; the ms NaN where the trace is incomplete."""
+    with ``device_profile(spans=True)``, of all of them (``all``), and each
+    class's launches a step (``launches``); the ms NaN where the trace is
+    incomplete."""
     pt = prof.program
     ops = [(op[0], op[2] - op[1]) for op in pt.ops if pt._within(op[3], span)]
     nan = float("nan")
     out = {k: (1e3 * sum(d for name, d in ops if any(p in name for p in parts)) / steps
                if prof.complete else nan) for k, parts in GLUE_OPS.items()}
     out["all"] = 1e3 * sum(d for _, d in ops) / steps if prof.complete else nan
-    out["transpose_launches"] = sum(
-        1 for name, _ in ops if any(p in name for p in GLUE_OPS["transposes"])) / steps
+    out["launches"] = {k: sum(1 for name, _ in ops if any(p in name for p in parts)) / steps
+                       for k, parts in GLUE_OPS.items()}
     return out
 
 
 def conv1_1_transposes(torch, sp, batch: int) -> float:
     """Transpose launches of the two streams' conv1_1 alone, each on a
     (``batch``, C, SIZE, SIZE) input in the memory format its stream
-    gives it (``models/vgg.py``): all that ``sp.encode`` may launch a
-    step."""
-    from gaze_tpu_torch.models.vgg import _nhwc_route, conv
+    gives it, through the stream's layer (``models/vgg.py:conv_bias_relu``):
+    all that ``sp.encode`` may launch a step."""
+    from gaze_tpu_torch.models.vgg import _nhwc_route, conv_bias_relu
 
     convs = (sp.spatial.conv1_1, sp.temporal.conv1_1)
     dev, dtype = convs[0].weight.device, sp.spatial.dtype
@@ -3676,8 +3696,112 @@ def conv1_1_transposes(torch, sp, batch: int) -> float:
     xs = [torch.zeros(batch, m.in_channels, SIZE, SIZE, device=dev, dtype=dtype)
           .contiguous(memory_format=fmt) for m in convs]
     with torch.no_grad():
-        _, prof = device_profile(torch, lambda: [conv(m, x) for m, x in zip(convs, xs)])
+        _, prof = device_profile(torch, lambda: [conv_bias_relu(m, x) for m, x in zip(convs, xs)])
     return sum(device_us(prof, part)[1] for part in GLUE_OPS["transposes"])
+
+
+def vgg_fused_b128_phase(torch, dev) -> dict:
+    """Each layer shape of the production streams at BENCH_B on the NHWC
+    route (bf16, channels_last; random operands, weights at He scale): the
+    stream's layer, ``conv_bias_relu`` (cuDNN's convolution with the bias
+    and ReLU in its epilogue), against convolution, bias add and ReLU and
+    against the float32 convolution of the same bf16 operands (TF32 off).
+    The fused layer rounds once, after the float32 bias and the ReLU,
+    where the plain ops round after the convolution and again after the
+    bias add: its largest error no larger than theirs plus one bf16 ulp of
+    the largest output. The fused op hands cuDNN its own uninitialised
+    output as the addend z of weight 0, so each layer first runs right
+    after POISON_BLOCKS blocks of its output's size were filled with NaN
+    and freed: no NaN may come out, and the output must land on one of
+    them for some shape. Device ms of each layer and of the plain ops by
+    events, summed over the streams' 26 layers. Then each shape at the
+    other batches of FUSED_SWEEP_BATCHES and at the sides of a 64-pixel
+    input, under the same rule: the layer has no fallback, so cuDNN must
+    have a fused engine wherever the streams run."""
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    from gaze_tpu_torch.core.config import preset_config
+    from gaze_tpu_torch.models.vgg import VGG16_STAGES, conv, conv_bias_relu
+
+    cl, bf16 = torch.channels_last, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(BENCH_B)
+    shapes = {}   # (in, out, side) -> the layers of that shape
+    for stream, c in (("spatial", 3), ("temporal", preset_config("production").sp.flow_channels)):
+        side = SIZE
+        for s, stage in enumerate(VGG16_STAGES):
+            for i, ch in enumerate(stage):
+                shapes.setdefault((c, ch, side), []).append(f"{stream}.conv{s + 1}_{i + 1}")
+                c = ch
+            side //= 2
+
+    def compare(m, x):
+        """The fused layer's output and its errors beside the plain ops'."""
+        y, u = conv_bias_relu(m, x), F.relu(conv(m, x))
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            r = F.relu(F.conv2d(x.float(), m.weight.to(bf16).float(),
+                                m.bias.to(bf16).float(), 1, 1))
+        err = dict(max_err=float((y.float() - r).abs().max()),
+                   plain_max_err=float((u.float() - r).abs().max()),
+                   ulp_of_max=2.0 ** (math.frexp(float(r.max()))[1] - 8),
+                   mean_err=float((y.float() - r).abs().mean()),
+                   plain_mean_err=float((u.float() - r).abs().mean()),
+                   channels_last=y.is_contiguous(memory_format=cl),
+                   nan=int(torch.isnan(y).sum()))
+        return y, err
+
+    def judge(what, err):
+        if err["nan"] or not err["channels_last"]:
+            bad.append(f"{what}: {err['nan']} NaN, channels_last {err['channels_last']}")
+        if not err["max_err"] <= err["plain_max_err"] + err["ulp_of_max"]:
+            bad.append(f"{what}: largest error {err['max_err']} against the plain ops' "
+                       f"{err['plain_max_err']} and an ulp {err['ulp_of_max']}")
+
+    rows, sweep, bad, totals = [], [], [], {"layer_ms": 0.0, "plain_ms": 0.0}
+    for (ci, co, side), names in shapes.items():
+        m = nn.Conv2d(ci, co, 3, padding=1).to(dev)
+        with torch.no_grad():
+            m.weight.copy_(torch.randn(co, ci, 3, 3, device=dev, generator=gen)
+                           * (2.0 / (9 * ci)) ** 0.5)
+            m.bias.copy_(0.1 * torch.randn(co, device=dev, generator=gen))
+            x = torch.randn(BENCH_B, ci, side, side, device=dev, generator=gen).to(bf16) \
+                .contiguous(memory_format=cl)
+            # made channels_last in place, so that no other NaN block is freed
+            poison = [torch.empty(BENCH_B, co, side, side, device=dev, dtype=bf16,
+                                  memory_format=cl).fill_(float("nan"))
+                      for _ in range(POISON_BLOCKS)]
+            ptrs = {p.data_ptr() for p in poison}
+            del poison
+            y, err = compare(m, x)
+            row = dict(layers=names, shape=[BENCH_B, ci, co, side], **err,
+                       poisoned_block_reused=y.data_ptr() in ptrs,
+                       ms=cuda_ms(torch, lambda: conv_bias_relu(m, x), 10),
+                       plain_ms=cuda_ms(torch, lambda: F.relu(conv(m, x)), 10))
+            del y, x
+            judge(names, err)
+            for b in FUSED_SWEEP_BATCHES:
+                for sd in (side, side * 64 // SIZE):
+                    x = torch.randn(b, ci, sd, sd, device=dev, generator=gen).to(bf16) \
+                        .contiguous(memory_format=cl)
+                    _, err = compare(m, x)
+                    sweep.append(dict(shape=[b, ci, co, sd], **err))
+                    judge(f"{names[0]} at {[b, ci, co, sd]}", err)
+        rows.append(row)
+        totals["layer_ms"] += len(names) * row["ms"]
+        totals["plain_ms"] += len(names) * row["plain_ms"]
+        torch.cuda.empty_cache()
+    poisoned = sum(r["poisoned_block_reused"] for r in rows)
+    worst = max(sweep, key=lambda r: r["max_err"] - r["plain_max_err"] - r["ulp_of_max"])
+    emit("vgg_fused_b128", layers=rows, fused_shapes_on_poisoned_blocks=poisoned,
+         sweep_shapes=len(sweep), sweep_batches=FUSED_SWEEP_BATCHES, sweep_worst=worst,
+         **totals)
+    if bad:
+        fail("vgg_fused_b128: " + "; ".join(bad))
+    if not poisoned:
+        fail("vgg_fused_b128: no layer's output landed on a NaN-poisoned block")
+    return totals
 
 
 def k3_instance(bk: int, bn: int, dequant: bool, pool: bool) -> str:
@@ -3958,7 +4082,8 @@ def clip_b128_phase(torch, cuda, bench) -> dict:
                    b8_near_tie_frames=b8_ties, b8_first_step_max_diff=b8_stage_diff,
                    bf16_vs_float32_max_diff=bf16_effect)
         # the program's spans over one whole clip: the glue under sp.encode;
-        # streams on the NHWC route launch no transpose beyond conv1_1's
+        # streams on the NHWC route launch no transpose beyond conv1_1's,
+        # and no bias add or ReLU: each layer is one fused convolution
         _, spans = device_profile(torch, lambda: run_clip(pipe, frames, fixsac), spans=True)
         routed = bp["qsp"] is None and _nhwc_route(pipe.device, pipe.sp.spatial.dtype)
         allowed = conv1_1_transposes(torch, pipe.sp, BENCH_B) if routed else 0
@@ -3972,9 +4097,12 @@ def clip_b128_phase(torch, cuda, bench) -> dict:
         checks = []
         if got_counters != want_counters:
             checks.append(f"the traced clip counted {got_counters}, expected {want_counters}")
-        if routed and encode["transpose_launches"] > allowed:
-            checks.append(f"{encode['transpose_launches']} transposes a step under sp.encode, "
-                          f"more than conv1_1's {allowed}")
+        if routed and encode["launches"]["transposes"] > allowed:
+            checks.append(f"{encode['launches']['transposes']} transposes a step under "
+                          f"sp.encode, more than conv1_1's {allowed}")
+        for k in ("bias_adds", "relu"):
+            if routed and encode["launches"][k]:
+                checks.append(f"{encode['launches'][k]} {k} launches a step under sp.encode")
         # a complete trace holds each K3 launch as the instantiation that the
         # launcher takes for its layer
         rule = k3_step_instances(BENCH_B) if bp["qsp"] is not None else {}
@@ -4125,8 +4253,10 @@ def train_b128_phase(torch, cuda) -> dict:
     "none") on train_sp's 8-row batch repeated BENCH_B / TRAIN_B times with
     two sets of gaze targets, against the mean of the 8-row steps with each
     set from the same state: the loss, the applied gradient and the new
-    BatchNorm statistics within their bands; then BENCH_RUNS timed steps
-    (exact K1/K2 launches each), a profiled one, peak memory. A batch that
+    BatchNorm statistics within their bands; the 8-row step's gradient
+    with ``remat="encoders"`` within REMAT_GRAD_RTOL of remat "none"'s;
+    then BENCH_RUNS timed steps (exact K1/K2 launches each), a profiled
+    one, peak memory. A batch that
     does not fit fails the phase, after the largest batch that fits and
     its peak are found. Returns the launches of the timed steps."""
     from gaze_tpu_torch.core.config import parity_config, preset_config
@@ -4183,6 +4313,17 @@ def train_b128_phase(torch, cuda) -> dict:
 
     _, step_a = first_step(batch_a)
     _, step_b = first_step(batch_b)
+    # remat="encoders" on the fused route: the streams recomputed in the
+    # backward; the first step's gradient at TRAIN_B against none's
+    rcfg = dataclasses.replace(pcfg, sp=dataclasses.replace(pcfg.sp, remat="encoders"))
+    rpipe = GazePipeline(rcfg, dtype=torch.bfloat16, seed=0)
+    create_sp_state(rpipe)
+    rpipe.sp.load_state_dict(init)
+    rgrads = []
+    rstate = capture_grads(make_state(rpipe.sp, make_optimizer(pcfg.train)), rgrads)
+    make_sp_train_step(rpipe)(rstate, batch_a)
+    remat = grad_compare(rgrads[0], step_a["grads"], rstate.param_names)
+    del rpipe, rstate, rgrads
     run = fits(BENCH_B)
     if run is None:
         n, largest = BENCH_B // 2, None
@@ -4242,6 +4383,7 @@ def train_b128_phase(torch, cuda) -> dict:
          top_kernels=[{"name": k[:90], "ms": v[0] / 1e3, "launches": v[1]} for k, v in top],
          span_trace_complete=spans.complete, counters=got_counters, glue_ms=glue,
          conv1_1_transposes=allowed,
+         remat_encoders={"grads": remat, "tol": REMAT_GRAD_RTOL},
          vs_b8_mean={"loss": big["loss"], "b8_mean_loss": mean_loss, "loss_rel_err": loss_rel,
                      "grads": grads, "batch_stats_rel_err": stats_rel,
                      "b8_a_vs_mean_grad_rel_l2": a_vs_mean,
@@ -4254,9 +4396,14 @@ def train_b128_phase(torch, cuda) -> dict:
             fail(f"train_b128: timed step {n} launched {got}, expected {per_step}")
     if got_counters != want_counters:
         fail(f"train_b128: the traced step counted {got_counters}, expected {want_counters}")
-    if glue["encode"]["transpose_launches"] > allowed:
-        fail(f"train_b128: {glue['encode']['transpose_launches']} transposes under sp.encode, "
-             f"more than conv1_1's {allowed}")
+    if glue["encode"]["launches"]["transposes"] > allowed:
+        fail(f"train_b128: {glue['encode']['launches']['transposes']} transposes under "
+             f"sp.encode, more than conv1_1's {allowed}")
+    for k in ("bias_adds", "relu"):
+        if glue["encode"]["launches"][k]:
+            fail(f"train_b128: {glue['encode']['launches'][k]} {k} launches under sp.encode")
+    if not remat["model_rel_l2"] <= REMAT_GRAD_RTOL:
+        fail(f"train_b128: remat=encoders gradients {remat} from none's > {REMAT_GRAD_RTOL}")
     if not a_vs_mean > TRAIN_B128_AB_MIN * TRAIN_B128_GRAD_RTOL:
         fail(f"train_b128: targets A and B give gradients only {a_vs_mean} from their mean: "
              f"the check could not tell a step on part of the batch")
@@ -4426,6 +4573,8 @@ def bench_config_phases(torch, dev, cuda, lap) -> dict:
     res = {"paths": {}, "training": {}}
     lap("kernels_b128")
     res["b128"] = kernels_b128_phase(torch, dev)
+    lap("vgg_fused_b128")
+    res["vgg_fused_b128"] = vgg_fused_b128_phase(torch, dev)
     lap("clip_b128")
     bench = bench_streams(T + 1)
     clips = clip_b128_phase(torch, cuda, bench)

@@ -4,8 +4,10 @@ Counterpart of ``gaze_tpu/models/vgg.py``: only the first four max-pools
 are applied, so a 224x224 input gives 14x14x512 conv5 features. NHWC at
 the boundary. Inside, a bf16 or fp16 stream on the card runs every layer
 channels_last, the layout of cuDNN's tensor-core convolutions, so that no
-layout transpose surrounds them in the forward or the backward; float32
-(cuDNN's FFT and NCHW kernels) and the CPU run NCHW.
+layout transpose surrounds them in the forward or the backward, and each
+layer as one convolution that adds the bias and applies the ReLU before
+its one store (``conv_bias_relu``); float32 (cuDNN's FFT and NCHW
+kernels) and the CPU run NCHW, each layer a convolution and a ReLU.
 
 ``dtype`` is the activation and compute type (flax's ``dtype``); the
 parameters stay float32 (``param_dtype``) and are cast per call, as
@@ -46,6 +48,44 @@ def conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, m.weight.to(x.dtype), b, m.stride, m.padding, m.dilation, m.groups)
 
 
+# cuDNN's convolution that adds the bias to its float32 accumulator and
+# applies the ReLU before it rounds and stores the output once (CUDA only)
+_fused_conv_relu = torch.ops.aten.cudnn_convolution_relu
+
+
+class _ConvBiasReLU(torch.autograd.Function):
+    """``relu(conv2d(x, w, b))`` as ``_fused_conv_relu``. The backward is
+    the kernels autograd runs for the plain ops: the ReLU's mask on the
+    output, then one convolution backward with the bias gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding, dilation, groups):
+        y = _fused_conv_relu(x, w, b, stride, padding, dilation, groups)
+        ctx.save_for_backward(x, w, y)
+        ctx.conv = (stride, padding, dilation, groups)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, y = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.conv
+        g = torch.ops.aten.threshold_backward(gy, y, 0)
+        gx, gw, gb = torch.ops.aten.convolution_backward(
+            g, x, w, [w.shape[0]], stride, padding, dilation, False, [0, 0], groups,
+            list(ctx.needs_input_grad[:3]))
+        return gx, gw, gb, None, None, None, None
+
+
+def conv_bias_relu(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``F.relu(conv(m, x))``: on the NHWC route one ``_ConvBiasReLU``,
+    with the weight and bias cast to ``x``'s dtype outside it, so that the
+    float32 parameters get their gradients through the casts."""
+    if not _nhwc_route(x.device, x.dtype):
+        return F.relu(conv(m, x))
+    return _ConvBiasReLU.apply(x, m.weight.to(x.dtype), m.bias.to(x.dtype), m.stride,
+                               m.padding, m.dilation, m.groups)
+
+
 class VGG16Features(nn.Module):
     """(B, H, W, Cin) -> (B, H/16, W/16, C5) conv5_3 features.
 
@@ -73,7 +113,7 @@ class VGG16Features(nn.Module):
         x = x.to(self.dtype)
         for s, stage in enumerate(self.stages):
             for i in range(len(stage)):
-                x = F.relu(conv(getattr(self, f"conv{s + 1}_{i + 1}"), x))
+                x = conv_bias_relu(getattr(self, f"conv{s + 1}_{i + 1}"), x)
             if s < len(self.stages) - 1:
                 x = F.max_pool2d(x, 2, 2)
         return x

@@ -15,6 +15,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gaze_tpu.core import config as jconfig
 from gaze_tpu.models import at as jat
@@ -149,11 +152,13 @@ class TestSP:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
     def test_vgg_nhwc_route(self, narrow, dtype, monkeypatch):
         """The streams' channels_last route, taken on the card in bf16 and
-        fp16 alone, forced on the CPU through the module's route test:
-        against the NCHW route, the same features (float32 within 1e-6 of
-        the largest, bf16 within one ulp of the larger of each pair) as
-        contiguous NHWC tensors, the same weight gradients within 1e-5,
-        and ``sp.nhwc_streams`` counted once a stream."""
+        fp16 alone, forced on the CPU through the module's route test,
+        each layer one ``_ConvBiasReLU`` there with the plain ops standing
+        in for cuDNN's fused convolution: against the NCHW route, the same
+        features (float32 within 1e-6 of the largest, bf16 within one ulp
+        of the larger of each pair) as contiguous NHWC tensors, the same
+        weight gradients within 1e-5, and ``sp.nhwc_streams`` counted once
+        a stream."""
         _, tcfg, v = narrow
         cuda, cpu = torch.device("cuda"), torch.device("cpu")
         assert tvgg._nhwc_route(cuda, dtype) == (dtype == torch.bfloat16)
@@ -173,6 +178,7 @@ class TestSP:
         want, want_grads, counters = run()
         assert counters == {}
         monkeypatch.setattr(tvgg, "_nhwc_route", lambda device, dtype: True)
+        monkeypatch.setattr(tvgg, "_fused_conv_relu", plain_conv_relu)
         got, grads, counters = run()
         assert counters == {"sp.nhwc_streams": 2}
         for g, w in zip(got, want):
@@ -185,6 +191,50 @@ class TestSP:
             assert bool(((g.float() - w.float()).abs() <= tol).all())
         for g, w in zip(grads, want_grads):
             assert float((g - w).norm()) <= 1e-5 * float(w.norm())
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+    @pytest.mark.parametrize("case", ["conv1_1", "conv1_2", "checkpoint"])
+    def test_conv_bias_relu(self, dtype, case, monkeypatch):
+        """``conv_bias_relu`` off the NHWC route is the plain ops; on it
+        (forced on the CPU, the plain ops standing in for cuDNN's fused
+        convolution, which ``chip_smoke.py``'s vgg_fused_b128 holds to
+        them on the card) one ``_ConvBiasReLU``, whose backward is under
+        test: on a channels_last input as the route gives it, the input,
+        weight and bias gradients within 1e-5 of the norm of autograd's
+        through the plain ops; at conv1_1's width (3 input channels), at
+        conv1_2's, and under ``checkpoint(use_reentrant=False)``
+        (``remat="encoders"``)."""
+        ci, co = (3, 8) if case == "conv1_1" else (8, 8)
+        torch.manual_seed(0)
+        m = nn.Conv2d(ci, co, 3, padding=1)
+        x = torch.randn(2, ci, 12, 12).to(dtype).contiguous(memory_format=torch.channels_last)
+        x.requires_grad_()
+        gy = torch.randn(2, co, 12, 12).to(dtype)
+        leaves = (x, m.weight, m.bias)
+        assert type(tvgg.conv_bias_relu(m, x).grad_fn).__name__ == "ReluBackward0"
+        monkeypatch.setattr(tvgg, "_nhwc_route", lambda device, dtype: True)
+        monkeypatch.setattr(tvgg, "_fused_conv_relu", plain_conv_relu)
+
+        def fused(x):
+            if case == "checkpoint":
+                return checkpoint(tvgg.conv_bias_relu, m, x, use_reentrant=False)
+            return tvgg.conv_bias_relu(m, x)
+
+        want = F.relu(F.conv2d(x, m.weight.to(dtype), m.bias.to(dtype), 1, 1))
+        want_grads = torch.autograd.grad(want, leaves, gy)
+        got = fused(x)
+        assert "ConvBiasReLU" in type(got.grad_fn).__name__
+        grads = torch.autograd.grad(got, leaves, gy)
+        assert got.dtype == dtype and torch.equal(got, want)
+        for g, w in zip(grads, want_grads):
+            assert g.dtype == w.dtype
+            assert float((g - w).float().norm()) <= 1e-5 * float(w.float().norm())
+
+
+def plain_conv_relu(x, w, b, stride, padding, dilation, groups):
+    """The plain ops in the place of ``aten.cudnn_convolution_relu``, which
+    only the card has."""
+    return F.relu(F.conv2d(x, w, b, stride, padding, dilation, groups))
 
 
 class TestAT:
